@@ -27,3 +27,11 @@ def _install_hypothesis_stub() -> None:
 
 
 _install_hypothesis_stub()
+
+
+def pytest_configure(config) -> None:
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips (inside the test) where CUDA is "
+        "absent",
+    )

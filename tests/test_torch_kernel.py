@@ -1,0 +1,126 @@
+"""The ``timing_scan`` CUDA kernel against its plain torch version, on a card.
+
+Run on a machine with a CUDA device:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernel.py
+
+This file imports only the port (no JAX, no reference package), so it runs
+where the reference cannot.  Each test decides inside itself whether a
+card is present and skips without one.  Outputs must be bitwise equal
+(``torch.equal``), attribution cubes and flags included, and the card's
+plans bitwise equal to the CPU's.
+"""
+
+import pytest
+import torch
+
+from repro_torch.core import (
+    BatchInstance,
+    DependencyMode,
+    OpticalFabric,
+    PlannerOptions,
+    PlanRequest,
+    get_pattern,
+    plan,
+    prestage_for,
+    strawman_instance,
+)
+from repro_torch.core.convert import packed_from_numpy
+from repro_torch.core.ir import pack_instances
+from repro_torch.kernels.timing_scan import (
+    timing_scan,
+    timing_scan_cuda,
+    timing_scan_plain,
+)
+
+_SPECS = (
+    ("ring_allreduce", 8, 10e6, 1, 50e-6),
+    ("pairwise_alltoall", 10, 3e6, 4, 200e-6),
+    ("rabenseifner_allreduce", 8, 40e6, 2, 0.0),
+    ("bruck_alltoall", 5, 7e6, 3, 100e-6),
+    ("pairwise_alltoall", 8, 8e6, 4, 3.2e-3),
+)
+
+
+def _require_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _cells():
+    cells = []
+    for alg, n, size, planes, t_recfg in _SPECS:
+        pattern = get_pattern(alg, n, size)
+        fabric = OpticalFabric(n, planes, t_recfg=t_recfg)
+        cells.append((prestage_for(fabric, pattern), pattern))
+    return cells
+
+
+def _batches():
+    cells = _cells()
+    greedy = plan(PlanRequest.grid(
+        cells, options=PlannerOptions(device="cpu", bypass_depth=2)
+    ))
+    ready = [
+        tuple(2.5e-5 * (j + 1) for j in range(f.n_planes)) for f, _ in cells
+    ]
+    return {
+        "strawman": ([strawman_instance(f, p) for f, p in cells], None),
+        "plane_ready": ([strawman_instance(f, p) for f, p in cells], ready),
+        "greedy_bypass": (
+            [
+                BatchInstance(c.plan.fabric, c.plan.pattern, c.plan.decisions)
+                for c in greedy.grid
+            ],
+            None,
+        ),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attribution", [False, True])
+def test_kernel_matches_plain_bitwise(attribution):
+    _require_card()
+    for name, (instances, ready) in _batches().items():
+        tensors = packed_from_numpy(pack_instances(instances, ready), "cuda")
+        before = timing_scan.launches
+        got = timing_scan(tensors, attribution=attribution)
+        assert timing_scan.launches == before + 1
+        want = timing_scan_plain(tensors, attribution=attribution)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == (9 if attribution else 5)
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and torch.equal(g, w), (name, k)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_too_many_planes():
+    _require_card()
+    pattern = get_pattern("ring_allreduce", 4, 1e6)
+    inst = strawman_instance(OpticalFabric(4, 129), pattern)
+    tensors = packed_from_numpy(pack_instances([inst], None), "cuda")
+    with pytest.raises(ValueError, match="planes"):
+        timing_scan_cuda(tensors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "mode,split",
+    [
+        (DependencyMode.CHAIN, False),
+        (DependencyMode.INDEPENDENT, False),
+        (DependencyMode.INDEPENDENT, True),
+    ],
+)
+def test_card_plans_match_cpu_plans(mode, split):
+    _require_card()
+    cells = _cells()
+    opts = dict(mode=mode, independent_split=split)
+    if mode is DependencyMode.CHAIN:
+        opts["bypass_depth"] = 2
+    card = plan(PlanRequest.grid(cells, options=PlannerOptions(device="cuda", **opts)))
+    cpu = plan(PlanRequest.grid(cells, options=PlannerOptions(device="cpu", **opts)))
+    for a, b in zip(card.grid, cpu.grid):
+        assert a.plan.decisions == b.plan.decisions
+        assert a.cct == b.cct and a.strawman_cct == b.strawman_cct
+        assert a.plan.utilization == b.plan.utilization

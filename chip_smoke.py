@@ -1,28 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``src/repro_torch/kernels/csrc``
-(into ``build/repro_torch/``), then, each phase printing one JSON line:
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+(into ``build/repro_torch/``, one ``nvcc`` per source, all started
+together), then, each phase printing one JSON line:
 
-1. ``card`` / ``build``: the card's name and power limit, the build time;
+1. ``card`` / ``build``: the card's name and power limit, each kernel's
+   build time;
 2. ``main_path``: ``repro_torch.core.api.plan`` on the full sweep grid --
    32 message sizes (1-32 MB) x 32 reconfiguration delays (12.5-400 us)
    of a 128-node pairwise all-to-all (127 steps) on 8 planes, 1024 cells,
-   default options -- cold, warm and with attribution, with the kernel's
-   launch count read around the cold run; the Fig. 5 anchor (1300 us
+   default options -- cold, warm and with attribution, with the kernels'
+   launch counts read around the cold run; the Fig. 5 anchor (1300 us
    planned, 1500 us strawman, the strawman also planned per instance);
-3. ``kernel_vs_plain``: the kernel against its plain torch version on the
-   card, bitwise, attribution off and on, on the grid's strawman and
+3. ``kernel_vs_plain``: ``timing_scan`` against its plain torch version on
+   the card, bitwise, attribution off and on, on the grid's strawman and
    greedy decisions and on a 64-cell relay-carrying (bypass) batch, with
    warm median times;
 4. ``card_vs_cpu``: the card's plans bitwise equal to the port's CPU
    plans on the first 8 grid cells, the attribution of every grid cell
    whose decomposition misses its CCT by one ulp, the 64-cell bypass grid
-   and a 64-cell INDEPENDENT grid (packing and water-fill splitting).
+   and a 64-cell INDEPENDENT grid (packing and water-fill splitting);
+5. ``serve``: ``ServeEngine.generate`` through full-width qwen2-1.5B (28
+   layers, random weights from seed 0, attention through the
+   ``flash_attention`` kernel) on 8 requests of 1024-2048 prompt tokens
+   x 32 new tokens: prefill cold and warm, decode per step, tokens/s, peak
+   memory, the kernels' launch counts read around one ``generate`` (28
+   flash-attention launches), the generated tokens;
+6. ``attention_vs_plain``: the ``flash_attention`` kernel against its
+   plain torch version on the serving shape and on head dims 120 (with a
+   window), 256 and 16, a float32 case and a ragged length, with warm
+   median times, and ``scaled_dot_product_attention`` timed on the
+   serving shape as the library yardstick;
+7. ``serve_kernel_vs_plain``: the 8 requests' prefill through a 2-layer
+   full-width model with the kernel and with the plain attention forced;
+8. ``serve_card_vs_cpu``: a 2-layer full-width model with the same
+   weights on the CPU and on the card, prefill and 3 decode steps.
 
 Then one line listing each kernel with its numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -33,11 +50,14 @@ the reference package.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -47,8 +67,28 @@ SIZES = tuple(1e6 * (1 + i) for i in range(32))
 RECFGS = tuple(12.5e-6 * (1 + i) for i in range(32))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP64_FLOPS = 34e12  # H100 SXM fp64 outside the tensor cores, data sheet
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/timing_scan.cu"
-KERNEL_REPLACES = "src/repro/kernels/timing_scan.py:47"
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16; fp32 CUDA cores
+KERNELS = {
+    "timing_scan": ("src/repro_torch/kernels/csrc/timing_scan.cu",
+                    "src/repro/kernels/timing_scan.py:47"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:32"),
+}
+SERVE_ARCH = "qwen2_1_5b"
+SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_MAX_LEN = 8, 32, 2080
+SERVE_PROMPT_RANGE = (1024, 2048)
+LOGIT_TOL = 0.05  # the reference's prefill/decode tolerance
+MARGIN = 0.1  # top-2 logit margin above which greedy tokens must agree
+# (name, BHq, BHkv, Sq, Skv, D, dtype, causal, window); "main_path" takes
+# the serve phase's padded prompt length.
+ATTENTION_CASES = [
+    ("main_path", 96, 16, None, None, 128, "bfloat16", True, None),
+    ("d120_window", 32, 8, 1024, 1024, 120, "bfloat16", True, 512),
+    ("d256_group1", 8, 8, 1024, 1024, 256, "bfloat16", True, None),
+    ("d16", 12, 4, 300, 300, 16, "bfloat16", True, None),
+    ("float32", 24, 12, 500, 777, 64, "float32", False, None),
+    ("ragged_2000", 24, 4, 2000, 2000, 128, "bfloat16", True, None),
+]
 
 
 def emit(phase: str, **fields) -> None:
@@ -58,6 +98,65 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def median_ms(fn, reps):
+    """Warm median of ``reps`` CUDA-event-timed calls of ``fn``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def wall_ms(fn):
+    """Host-clock ms of ``fn`` ending in a synchronize; returns (out, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - start) * 1e3
+
+
+def attention_tolerance(dtype: str, want) -> float:
+    """2e-5 in float32; one bf16 ulp of the output magnitude in bf16."""
+    if dtype == "float32":
+        return 2e-5
+    return 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7)
+
+
+def attention_bound(q, k, causal, window):
+    """Least time for the attention: bytes (q, k, v, o once) at HBM rate
+    vs the two products' FLOPs over the unmasked (query, key) pairs at the
+    inputs' peak rate; returns (ms, "bytes" | "operations", flops)."""
+    import torch
+
+    bhq, sq, d = q.shape
+    skv = k.shape[1]
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    kv_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window is not None:
+        mask &= q_pos - kv_pos < window
+    flops = 4 * bhq * d * int(mask.sum())
+    n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops
+
 
 
 def main() -> int:
@@ -88,6 +187,7 @@ def main() -> int:
     from repro_torch.core.ir import pack_instances
     from repro_torch.core.patterns import pairwise_alltoall, rabenseifner_allreduce
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.timing_scan import (
         timing_scan,
         timing_scan_cuda,
@@ -105,12 +205,18 @@ def main() -> int:
     emit("card", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
-    t0 = time.perf_counter()
-    lib = _build.build("timing_scan")
-    _build.load("timing_scan")
-    log = Path(f"{lib}.log")
-    emit("build", kernel="timing_scan", seconds=time.perf_counter() - t0,
-         ptxas=log.read_text().strip().splitlines()[-8:] if log.exists() else [])
+    def build(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        _build.load(name)
+        log = Path(f"{lib}.log")
+        return dict(
+            kernel=name, seconds=time.perf_counter() - t0,
+            ptxas=log.read_text().strip().splitlines()[-8:] if log.exists() else [],
+        )
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        emit("build", kernels=list(pool.map(build, KERNELS)))
 
     # -- main path at full width ---------------------------------------------
     patterns = {size: pairwise_alltoall(N_NODES, size) for size in SIZES}
@@ -122,17 +228,14 @@ def main() -> int:
     request = PlanRequest.grid(cells, options=PlannerOptions(device="cuda"))
 
     def timed_plan(req):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        out = plan(req)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - start) * 1e3
+        return wall_ms(lambda: plan(req))
 
     torch.cuda.reset_peak_memory_stats()
-    timing_scan.launches = 0
+    timing_scan.launches = fa.flash_attention_bhsd.launches = 0
     result, cold_ms = timed_plan(request)
     launches = timing_scan.launches
     check(launches == 2, f"plan() launched timing_scan {launches} times, want 2")
+    check(fa.flash_attention_bhsd.launches == 0, "plan() launched flash_attention")
     _, warm_ms = timed_plan(request)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     att_result, att_ms = timed_plan(
@@ -203,20 +306,6 @@ def main() -> int:
     )
 
     # -- kernel against its plain version, on the card -----------------------
-    def median_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
     def bound(tensors, outs):
         """Least time for the work: bytes at HBM rate vs fp64 ops at peak."""
         n_bytes = sum(t.numel() * t.element_size() for t in tensors.values())
@@ -324,26 +413,224 @@ def main() -> int:
          bypass_cells_with_relays=n_relay, independent_cells=len(indep_cells),
          bitwise_equal=True, seconds=time.perf_counter() - t0)
 
+    # -- serving: full-width qwen2-1.5B through the flash-attention kernel ---
+    serve, attention = serve_phases(np, torch, fa, timing_scan)
+
     main_row = rows[("greedy", False)]
-    print(json.dumps({"kernels": [{
-        "name": "timing_scan",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {
+            "name": "timing_scan",
+            "route": "cuda",
+            "source": KERNELS["timing_scan"][0],
+            "replaces": KERNELS["timing_scan"][1],
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": KERNELS["flash_attention"][0],
+            "replaces": KERNELS["flash_attention"][1],
+            "launches": serve["flash_attention_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in attention.values()),
+            "ms": attention["main_path"]["ms"],
+            "plain_ms": attention["main_path"]["plain_ms"],
+            "bound_ms": attention["main_path"]["bound_ms"],
+            "bound_by": attention["main_path"]["bound_by"],
+            "library_ms": attention["main_path"]["library_ms"],
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def serve_phases(np, torch, fa, timing_scan):
+    """Phases 5-8: serving, the attention kernel, serving checks.
+
+    Returns the ``serve`` phase's fields and the ``attention_vs_plain``
+    rows by case name.
+    """
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    cfg = get_config(SERVE_ARCH).replace(attention_impl="pallas")
+    rng = np.random.default_rng(0)
+    lo, hi = SERVE_PROMPT_RANGE
+    prompts = [
+        rng.integers(2, cfg.vocab_size, int(n)).tolist()
+        for n in rng.integers(lo, hi + 1, SERVE_REQUESTS)
+    ]
+    requests = [Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+
+    # -- 5. serve ---------------------------------------------------------
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    engine = ServeEngine(model, params, max_len=SERVE_MAX_LEN)
+    tokens = engine._pad_batch(requests)
+    batch = {"tokens": tokens}
+    with torch.inference_mode():
+        (logits, _), prefill_cold_ms = wall_ms(lambda: model.prefill(params, batch))
+        _, prefill_warm_ms = wall_ms(lambda: model.prefill(params, batch))
+    check(bool(torch.isfinite(logits.float()).all()), "prefill logits not finite")
+    torch.cuda.reset_peak_memory_stats()
+    timing_scan.launches = fa.flash_attention_bhsd.launches = 0
+    completions, generate_ms = wall_ms(lambda: engine.generate(requests))
+    flash_launches = fa.flash_attention_bhsd.launches
+    check(
+        flash_launches == cfg.n_layers,
+        f"generate() launched flash_attention {flash_launches} times, want {cfg.n_layers}",
+    )
+    check(timing_scan.launches == 0, "generate() launched timing_scan")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    generated = [c.tokens for c in completions]
+    check(
+        all(len(t) == SERVE_NEW_TOKENS and all(0 <= x < cfg.padded_vocab for x in t)
+            for t in generated),
+        "a completion has the wrong length or an out-of-vocab token",
+    )
+    top2 = logits.float().topk(2, dim=-1).values
+    decided = ((top2[:, 0] - top2[:, 1]) > MARGIN).tolist()
+    first = torch.argmax(logits, dim=-1).tolist()
+    check(
+        all(t[0] == f for t, f, ok in zip(generated, first, decided) if ok),
+        "generate()'s first tokens != the prefill's argmax",
+    )
+    with torch.inference_mode():
+        step_logits, cache = model.prefill(params, batch)
+        cache = engine._grow(cache, len(requests))
+        tok = torch.argmax(step_logits, dim=-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(SERVE_NEW_TOKENS):
+            step_logits, cache = model.decode_step(params, cache, tok)
+            tok = torch.argmax(step_logits, dim=-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - start) * 1e3
+    check(bool(torch.isfinite(step_logits.float()).all()), "decode logits not finite")
+    decode_step_ms = decode_ms / SERVE_NEW_TOKENS
+    serve = dict(
+        arch=SERVE_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        requests=len(requests), prompt_lens=[len(p) for p in prompts],
+        padded_prompt_len=int(tokens.shape[1]), new_tokens=SERVE_NEW_TOKENS,
+        max_len=SERVE_MAX_LEN,
+        prefill_cold_ms=prefill_cold_ms, prefill_warm_ms=prefill_warm_ms,
+        generate_ms=generate_ms,
+        decode_step_ms=decode_step_ms,
+        decode_tokens_per_s=len(requests) / decode_step_ms * 1e3,
+        generate_tokens_per_s=len(requests) * SERVE_NEW_TOKENS / generate_ms * 1e3,
+        peak_mem_mb=peak_mb,
+        flash_attention_launches=flash_launches,
+        timing_scan_launches=timing_scan.launches,
+        tokens=generated,
+    )
+    emit("serve", **serve)
+    del model, params, engine, cache, logits, step_logits
+    torch.cuda.empty_cache()
+
+    # -- 6. attention kernel against its plain version ------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s_main = serve["padded_prompt_len"]
+    attention = {}
+    for name, bhq, bhkv, sq, skv, d, dtype, causal, window in ATTENTION_CASES:
+        sq, skv = sq or s_main, skv or s_main
+        q, k, v = (
+            torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
+            for shape in ((bhq, sq, d), (bhkv, skv, d), (bhkv, skv, d))
+        )
+        kw = dict(causal=causal, window=window)
+        got = fa.flash_attention_bhsd_cuda(q, k, v, **kw)
+        want = fa.flash_attention_bhsd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = attention_tolerance(dtype, want)
+        check(err <= tol, f"attention {name}: max abs error {err} > {tol}")
+        bound_ms, bound_by, flops = attention_bound(q, k, causal, window)
+        row = dict(
+            case=name, q=[bhq, sq, d], kv=[bhkv, skv, d], dtype=dtype,
+            causal=causal, window=window, max_abs_err=err, tolerance=tol,
+            ms=median_ms(lambda: fa.flash_attention_bhsd_cuda(q, k, v, **kw), 10),
+            plain_ms=median_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, **kw), 3),
+            bound_ms=bound_ms, bound_by=bound_by, flops=flops, library_ms=None,
+        )
+        if name == "main_path":
+            # Library yardstick, timed only: (B, H, S, D) views of the same
+            # tensors, GQA by the library's own head grouping.
+            b = bhq // cfg.n_heads
+            q4 = q.view(b, cfg.n_heads, sq, d)
+            k4, v4 = (t.view(b, cfg.n_kv_heads, skv, d) for t in (k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, is_causal=True, enable_gqa=True
+            )
+            lib_err = float((sdpa().float() - want.view(b, cfg.n_heads, sq, d).float()).abs().max())
+            row.update(library_ms=median_ms(sdpa, 10), library_max_abs_err=lib_err)
+        attention[name] = row
+        emit("attention_vs_plain", **row)
+
+    # -- 7. serving prefill: kernel against the plain attention, depth 2 -------
+    shallow = cfg.replace(n_layers=2)
+    model = build_model(shallow, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    with torch.inference_mode():
+        before = fa.flash_attention_bhsd.launches
+        kernel_logits, _ = model.prefill(params, batch)
+        check(fa.flash_attention_bhsd.launches == before + 2, "depth-2 prefill skipped the kernel")
+        with mock.patch.object(fa, "flash_attention_bhsd", fa.flash_attention_bhsd_plain):
+            plain_logits, _ = model.prefill(params, batch)
+        check(fa.flash_attention_bhsd.launches == before + 2, "the plain prefill launched the kernel")
+    err = float((kernel_logits.float() - plain_logits.float()).abs().max())
+    check(err <= LOGIT_TOL, f"serve kernel vs plain: logits off by {err}")
+    top2 = plain_logits.float().topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > MARGIN
+    same = torch.argmax(kernel_logits, -1) == torch.argmax(plain_logits, -1)
+    check(bool((same | ~decided).all()), "serve kernel vs plain: a decided first token differs")
+    emit("serve_kernel_vs_plain", n_layers=2, max_abs_err=err, tolerance=LOGIT_TOL,
+         decided_first_tokens=int(decided.sum()), equal_first_tokens=int(same.sum()))
+    del model, params
+    torch.cuda.empty_cache()
+
+    # -- 8. serving on the card against the CPU, depth 2 -------------------------
+    cpu_model = build_model(shallow, device="cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+    card_model = build_model(shallow, device=dev)
+    card_params = tree_map(lambda t: t.to(dev), cpu_params)
+    prompts_cpu = torch.from_numpy(
+        np.random.default_rng(1).integers(2, cfg.vocab_size, (2, 64)).astype(np.int32)
+    )
+    errs = []
+    with torch.inference_mode():
+        cpu_logits, cpu_cache = cpu_model.prefill(cpu_params, {"tokens": prompts_cpu})
+        card_logits, card_cache = card_model.prefill(card_params, {"tokens": prompts_cpu.to(dev)})
+        steps = [(cpu_logits, card_logits)]
+        cpu_cache = ServeEngine(cpu_model, cpu_params, max_len=68)._grow(cpu_cache, 2)
+        card_cache = ServeEngine(card_model, card_params, max_len=68)._grow(card_cache, 2)
+        for _ in range(3):
+            tok = torch.argmax(steps[-1][0], dim=-1)[:, None].to(torch.int32)
+            cpu_logits, cpu_cache = cpu_model.decode_step(cpu_params, cpu_cache, tok)
+            card_logits, card_cache = card_model.decode_step(card_params, card_cache, tok.to(dev))
+            steps.append((cpu_logits, card_logits))
+    for i, (want, got) in enumerate(steps):
+        err = float((got.cpu().float() - want.float()).abs().max())
+        check(err <= LOGIT_TOL, f"serve card vs CPU, step {i}: logits off by {err}")
+        errs.append(err)
+    emit("serve_card_vs_cpu", n_layers=2, prompts=[2, 64], decode_steps=3,
+         max_abs_err=errs, tolerance=LOGIT_TOL,
+         max_abs_logit=float(steps[0][0].float().abs().max()))
+    return serve, attention
 
 
 if __name__ == "__main__":

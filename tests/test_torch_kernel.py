@@ -1,4 +1,4 @@
-"""The ``timing_scan`` CUDA kernel against its plain torch version, on a card.
+"""The port's CUDA kernels against their plain torch versions, on a card.
 
 Run on a machine with a CUDA device:
 
@@ -6,10 +6,18 @@ Run on a machine with a CUDA device:
 
 This file imports only the port (no JAX, no reference package), so it runs
 where the reference cannot.  Each test decides inside itself whether a
-card is present and skips without one.  Outputs must be bitwise equal
-(``torch.equal``), attribution cubes and flags included, and the card's
-plans bitwise equal to the CPU's.
+card is present and skips without one.
+
+* ``timing_scan``: outputs bitwise equal (``torch.equal``), attribution
+  cubes and flags included, and the card's plans bitwise equal to the
+  CPU's.
+* ``flash_attention_bhsd``: within 2e-5 of the plain version in float32
+  and within one bf16 ulp of the output magnitude in bfloat16, on the
+  shapes ``chip_smoke.py``'s ``attention_vs_plain`` phase checks; every
+  call on CUDA tensors launches the kernel once.
 """
+
+import math
 
 import pytest
 import torch
@@ -27,6 +35,11 @@ from repro_torch.core import (
 )
 from repro_torch.core.convert import packed_from_numpy
 from repro_torch.core.ir import pack_instances
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bhsd,
+    flash_attention_bhsd_plain,
+)
 from repro_torch.kernels.timing_scan import (
     timing_scan,
     timing_scan_cuda,
@@ -124,3 +137,63 @@ def test_card_plans_match_cpu_plans(mode, split):
         assert a.plan.decisions == b.plan.decisions
         assert a.cct == b.cct and a.strawman_cct == b.strawman_cct
         assert a.plan.utilization == b.plan.utilization
+
+
+# (name, BHq, BHkv, Sq, Skv, D, dtype, causal, window): the serving path's
+# shape (qwen2-1.5B, 8 requests of 2048 tokens), then head dims 120, 256
+# and 16, a float32 case with Sq != Skv, and a ragged S.
+ATTENTION_CASES = [
+    ("main_path", 96, 16, 2048, 2048, 128, "bfloat16", True, None),
+    ("d120_window", 32, 8, 1024, 1024, 120, "bfloat16", True, 512),
+    ("d256_group1", 8, 8, 1024, 1024, 256, "bfloat16", True, None),
+    ("d16", 12, 4, 300, 300, 16, "bfloat16", True, None),
+    ("float32", 24, 12, 500, 777, 64, "float32", False, None),
+    ("ragged_2000", 24, 4, 2000, 2000, 128, "bfloat16", True, None),
+]
+
+
+def _attention_tolerance(dtype: str, want: torch.Tensor) -> float:
+    if dtype == "float32":
+        return 2e-5
+    magnitude = float(want.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(magnitude)) - 7)  # one bf16 ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,bhq,bhkv,sq,skv,d,dtype,causal,window",
+    ATTENTION_CASES,
+    ids=[c[0] for c in ATTENTION_CASES],
+)
+def test_flash_attention_kernel_matches_plain(
+    name, bhq, bhkv, sq, skv, d, dtype, causal, window
+):
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (
+        torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype))
+        for shape in ((bhq, sq, d), (bhkv, skv, d), (bhkv, skv, d))
+    )
+    before = flash_attention_bhsd.launches
+    got = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    assert flash_attention_bhsd.launches == before + 1
+    want = flash_attention_bhsd_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _attention_tolerance(dtype, want), (name, err)
+
+
+@pytest.mark.cuda
+def test_model_layout_wrapper_launches_the_kernel():
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((2, 70, 6, 64), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((2, 70, 2, 64), generator=gen, device="cuda").bfloat16()
+    before = flash_attention_bhsd.launches
+    got = flash_attention(q, k, k, causal=True, window=None)
+    assert flash_attention_bhsd.launches == before + 1
+    want = flash_attention(q.cpu(), k.cpu(), k.cpu(), causal=True, window=None)
+    assert flash_attention_bhsd.launches == before + 1
+    err = float((got.cpu().float() - want.float()).abs().max())
+    assert err <= _attention_tolerance("bfloat16", want)

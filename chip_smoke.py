@@ -29,17 +29,39 @@ together), then, each phase printing one JSON line:
    layers, random weights from seed 0, attention through the
    ``flash_attention`` kernel) on 8 requests of 1024-2048 prompt tokens
    x 32 new tokens: prefill cold and warm, decode per step, tokens/s, peak
-   memory, the kernels' launch counts read around one ``generate`` (28
-   flash-attention launches), the generated tokens;
+   memory, every kernel's launch count read around one ``generate`` (28
+   flash-attention launches, no other kernel), the generated tokens;
 6. ``attention_vs_plain``: the ``flash_attention`` kernel against its
-   plain torch version on the serving shape and on head dims 120 (with a
-   window), 256 and 16, a float32 case and a ragged length, with warm
-   median times, and ``scaled_dot_product_attention`` timed on the
-   serving shape as the library yardstick;
+   plain torch version on the serving shapes of qwen2-1.5B and of
+   zamba2-1.2b's shared block and on head dims 120 (with a window), 256
+   and 16, a float32 case and a ragged length, with warm median times, and
+   ``scaled_dot_product_attention`` timed on the qwen2 shape as the
+   library yardstick;
 7. ``serve_kernel_vs_plain``: the 8 requests' prefill through a 2-layer
-   full-width model with the kernel and with the plain attention forced;
+   full-width model with the kernel and with the plain attention forced,
+   logits within 0.05;
 8. ``serve_card_vs_cpu``: a 2-layer full-width model with the same
-   weights on the CPU and on the card, prefill and 3 decode steps.
+   weights on the CPU and on the card, two 64-token prompts, prefill and
+   3 decode steps, logits within 0.05;
+9. ``ssd_vs_plain``: the ``ssd_scan`` kernel against its plain torch
+   version (y and the final state within 3e-4 of their scale) on the
+   serving shapes of mamba2-130m (8 x 24 rows of 1895 x 64, state 128)
+   and zamba2-1.2b (8 x 64 rows, state 64) and on S < chunk, S a multiple
+   of the chunk, an initial state, a bf16 x, and P and N off the tiles,
+   with warm median times and the bound (no library call computes it);
+10. ``serve_ssm``: the same requests through full-width mamba2-130m (24
+    Mamba2 layers, random weights from seed 0), 24 ``ssd_scan`` launches
+    around one ``generate``;
+11. ``serve_hybrid``: the same through full-width zamba2-1.2b (38 Mamba2
+    layers in 6 groups of 6 around one shared attention block, then 2),
+    38 ``ssd_scan`` and 6 ``flash_attention`` launches;
+12. ``serve_ssm_kernel_vs_plain``: the requests' prefill through mamba2
+    cut to 2 layers and zamba2 cut to 3 (one group of 2, one trailing),
+    with the kernel and with the plain scan forced;
+13. ``serve_ssm_card_vs_cpu``: those cut models with the same weights on
+    the CPU and on the card, two 300-token prompts, prefill and 3 decode
+    steps.  Phases 12 and 13 hold the logits within 0.05 of their scale
+    (max(1, max |logit|)), phases 7 and 8 within 0.05 absolute.
 
 Then one line listing each kernel with its numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -73,16 +95,36 @@ KERNELS = {
                     "src/repro/kernels/timing_scan.py:47"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:32"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:31"),
 }
 SERVE_ARCH = "qwen2_1_5b"
+SSM_ARCH, HYBRID_ARCH = "mamba2_130m", "zamba2_1_2b"
+SSD_TOL = 3e-4  # of the output's own scale: the reference's kernel atol
+# (name, batch, heads, S, P, N, chunk, with an initial state, x dtype); S
+# None: the serving phases' padded prompt length.  The two serving shapes
+# (mamba2-130m, zamba2-1.2b), S shorter than a chunk, S a multiple of the
+# chunk, an initial state, a bf16 x, and P and N off the kernel's tiles.
+SSD_CASES = [
+    ("mamba2_130m", 8, 24, None, 64, 128, 128, False, "float32"),
+    ("zamba2_1_2b", 8, 64, None, 64, 64, 128, False, "float32"),
+    ("short_37", 2, 3, 37, 64, 128, 128, False, "float32"),
+    ("multiple_256", 2, 4, 256, 64, 128, 128, False, "float32"),
+    ("init_state", 2, 4, 300, 64, 64, 128, True, "float32"),
+    ("bf16_x", 2, 4, 500, 64, 128, 128, False, "bfloat16"),
+    ("p80_n18_chunk48", 3, 2, 200, 80, 18, 48, True, "float32"),
+]
 SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_MAX_LEN = 8, 32, 2080
 SERVE_PROMPT_RANGE = (1024, 2048)
 LOGIT_TOL = 0.05  # the reference's prefill/decode tolerance
 MARGIN = 0.1  # top-2 logit margin above which greedy tokens must agree
-# (name, BHq, BHkv, Sq, Skv, D, dtype, causal, window); "main_path" takes
-# the serve phase's padded prompt length.
+# (name, BHq, BHkv, Sq, Skv, D, dtype, causal, window); Sq, Skv None: the
+# serving phases' padded prompt length.  "main_path" is qwen2-1.5B's shape
+# (8 x 12 query heads over 8 x 2 KV heads of 128), "zamba2_shared" the
+# zamba2-1.2b shared block's (8 x 32 heads of 64, no grouping).
 ATTENTION_CASES = [
     ("main_path", 96, 16, None, None, 128, "bfloat16", True, None),
+    ("zamba2_shared", 256, 256, None, None, 64, "bfloat16", True, None),
     ("d120_window", 32, 8, 1024, 1024, 120, "bfloat16", True, 512),
     ("d256_group1", 8, 8, 1024, 1024, 256, "bfloat16", True, None),
     ("d16", 12, 4, 300, 300, 16, "bfloat16", True, None),
@@ -159,6 +201,28 @@ def attention_bound(q, k, causal, window):
 
 
 
+def ssd_bound(bsz, heads, s, p, n, chunk, with_init):
+    """Least time for the chunked scan on head-major float32 inputs: bytes
+    (xdt, logd, b, c and the initial state read once, y and the final
+    state written once) at HBM rate vs the products' FLOPs at the float32
+    rate.  Per chunk of q positions: C.B^T over the q(q+1)/2 causal pairs
+    (2N each) once per batch row, since every head reads the same B and C;
+    per row (batch x heads) the scores' product with xdt over those pairs
+    (2P each), C.S^T and the state update (2qNP each).  Returns (ms,
+    "bytes" | "operations", flops)."""
+    rows = bsz * heads
+    chunk = min(chunk, s)
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    pairs = [q * (q + 1) // 2 for q in lens]
+    flops = bsz * sum(2 * n * t for t in pairs)
+    flops += rows * sum(2 * p * t + 4 * q * n * p for q, t in zip(lens, pairs))
+    n_bytes = 4 * (2 * rows * s * p + rows * s + 2 * bsz * s * n
+                   + (2 if with_init else 1) * rows * p * n)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -188,6 +252,7 @@ def main() -> int:
     from repro_torch.core.patterns import pairwise_alltoall, rabenseifner_allreduce
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.timing_scan import (
         timing_scan,
         timing_scan_cuda,
@@ -231,11 +296,12 @@ def main() -> int:
         return wall_ms(lambda: plan(req))
 
     torch.cuda.reset_peak_memory_stats()
-    timing_scan.launches = fa.flash_attention_bhsd.launches = 0
+    timing_scan.launches = fa.flash_attention_bhsd.launches = ssd.ssd_scan_bhsp.launches = 0
     result, cold_ms = timed_plan(request)
     launches = timing_scan.launches
     check(launches == 2, f"plan() launched timing_scan {launches} times, want 2")
     check(fa.flash_attention_bhsd.launches == 0, "plan() launched flash_attention")
+    check(ssd.ssd_scan_bhsp.launches == 0, "plan() launched ssd_scan")
     _, warm_ms = timed_plan(request)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     att_result, att_ms = timed_plan(
@@ -414,7 +480,13 @@ def main() -> int:
          bitwise_equal=True, seconds=time.perf_counter() - t0)
 
     # -- serving: full-width qwen2-1.5B through the flash-attention kernel ---
-    serve, attention = serve_phases(np, torch, fa, timing_scan)
+    counters = {
+        "timing_scan": timing_scan,
+        "flash_attention": fa.flash_attention_bhsd,
+        "ssd_scan": ssd.ssd_scan_bhsp,
+    }
+    serve, attention = serve_phases(np, torch, fa, counters)
+    ssd_rows, serve_ssm, _ = ssm_phases(np, torch, fa, ssd, counters)
 
     main_row = rows[("greedy", False)]
     print(json.dumps({"kernels": [
@@ -444,6 +516,19 @@ def main() -> int:
             "bound_by": attention["main_path"]["bound_by"],
             "library_ms": attention["main_path"]["library_ms"],
         },
+        {
+            "name": "ssd_scan",
+            "route": "cuda",
+            "source": KERNELS["ssd_scan"][0],
+            "replaces": KERNELS["ssd_scan"][1],
+            "launches": serve_ssm["ssd_scan_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
+            "ms": ssd_rows[SSM_ARCH]["ms"],
+            "plain_ms": ssd_rows[SSM_ARCH]["plain_ms"],
+            "bound_ms": ssd_rows[SSM_ARCH]["bound_ms"],
+            "bound_by": ssd_rows[SSM_ARCH]["bound_by"],
+            "library_ms": None,
+        },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -453,31 +538,30 @@ def main() -> int:
     return 0
 
 
-def serve_phases(np, torch, fa, timing_scan):
-    """Phases 5-8: serving, the attention kernel, serving checks.
+def serve_prompts(np, vocab):
+    """The serving phases' requests: SERVE_REQUESTS prompts with lengths
+    from ``default_rng(0)`` uniform in SERVE_PROMPT_RANGE (the same lengths
+    for every vocabulary)."""
+    rng = np.random.default_rng(0)
+    lo, hi = SERVE_PROMPT_RANGE
+    return [
+        rng.integers(2, vocab, int(n)).tolist()
+        for n in rng.integers(lo, hi + 1, SERVE_REQUESTS)
+    ]
 
-    Returns the ``serve`` phase's fields and the ``attention_vs_plain``
-    rows by case name.
-    """
-    import torch.nn.functional as F
 
-    from repro_torch.configs.registry import get_config
-    from repro_torch.models.common import tree_map
+def serve_run(np, torch, cfg, counters, expect):
+    """Serve the requests through ``cfg`` on the card, random weights from
+    seed 0: prefill cold and warm, one ``generate`` with every kernel count
+    set to 0 just before it and read just after (``expect``: name ->
+    launches; every other kernel must not launch), decode steps.  Returns
+    the phase's fields and the padded prompt batch."""
     from repro_torch.models.lm import build_model
     from repro_torch.serve.engine import Request, ServeEngine
 
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
-    cfg = get_config(SERVE_ARCH).replace(attention_impl="pallas")
-    rng = np.random.default_rng(0)
-    lo, hi = SERVE_PROMPT_RANGE
-    prompts = [
-        rng.integers(2, cfg.vocab_size, int(n)).tolist()
-        for n in rng.integers(lo, hi + 1, SERVE_REQUESTS)
-    ]
+    prompts = serve_prompts(np, cfg.vocab_size)
     requests = [Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
-
-    # -- 5. serve ---------------------------------------------------------
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     engine = ServeEngine(model, params, max_len=SERVE_MAX_LEN)
@@ -486,29 +570,28 @@ def serve_phases(np, torch, fa, timing_scan):
     with torch.inference_mode():
         (logits, _), prefill_cold_ms = wall_ms(lambda: model.prefill(params, batch))
         _, prefill_warm_ms = wall_ms(lambda: model.prefill(params, batch))
-    check(bool(torch.isfinite(logits.float()).all()), "prefill logits not finite")
+    check(bool(torch.isfinite(logits.float()).all()), f"{cfg.name}: prefill logits not finite")
     torch.cuda.reset_peak_memory_stats()
-    timing_scan.launches = fa.flash_attention_bhsd.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     completions, generate_ms = wall_ms(lambda: engine.generate(requests))
-    flash_launches = fa.flash_attention_bhsd.launches
-    check(
-        flash_launches == cfg.n_layers,
-        f"generate() launched flash_attention {flash_launches} times, want {cfg.n_layers}",
-    )
-    check(timing_scan.launches == 0, "generate() launched timing_scan")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        want = expect.get(name, 0)
+        check(n == want, f"{cfg.name}: generate() launched {name} {n} times, want {want}")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     generated = [c.tokens for c in completions]
     check(
         all(len(t) == SERVE_NEW_TOKENS and all(0 <= x < cfg.padded_vocab for x in t)
             for t in generated),
-        "a completion has the wrong length or an out-of-vocab token",
+        f"{cfg.name}: a completion has the wrong length or an out-of-vocab token",
     )
     top2 = logits.float().topk(2, dim=-1).values
     decided = ((top2[:, 0] - top2[:, 1]) > MARGIN).tolist()
     first = torch.argmax(logits, dim=-1).tolist()
     check(
         all(t[0] == f for t, f, ok in zip(generated, first, decided) if ok),
-        "generate()'s first tokens != the prefill's argmax",
+        f"{cfg.name}: generate()'s first tokens != the prefill's argmax",
     )
     with torch.inference_mode():
         step_logits, cache = model.prefill(params, batch)
@@ -521,10 +604,10 @@ def serve_phases(np, torch, fa, timing_scan):
             tok = torch.argmax(step_logits, dim=-1)[:, None].to(torch.int32)
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - start) * 1e3
-    check(bool(torch.isfinite(step_logits.float()).all()), "decode logits not finite")
+    check(bool(torch.isfinite(step_logits.float()).all()), f"{cfg.name}: decode logits not finite")
     decode_step_ms = decode_ms / SERVE_NEW_TOKENS
-    serve = dict(
-        arch=SERVE_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+    fields = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
         requests=len(requests), prompt_lens=[len(p) for p in prompts],
         padded_prompt_len=int(tokens.shape[1]), new_tokens=SERVE_NEW_TOKENS,
         max_len=SERVE_MAX_LEN,
@@ -534,13 +617,31 @@ def serve_phases(np, torch, fa, timing_scan):
         decode_tokens_per_s=len(requests) / decode_step_ms * 1e3,
         generate_tokens_per_s=len(requests) * SERVE_NEW_TOKENS / generate_ms * 1e3,
         peak_mem_mb=peak_mb,
-        flash_attention_launches=flash_launches,
-        timing_scan_launches=timing_scan.launches,
+        **{f"{name}_launches": n for name, n in launches.items()},
         tokens=generated,
     )
-    emit("serve", **serve)
     del model, params, engine, cache, logits, step_logits
     torch.cuda.empty_cache()
+    return fields, batch
+
+
+def serve_phases(np, torch, fa, counters):
+    """Phases 5-8: serving, the attention kernel, serving checks.
+
+    Returns the ``serve`` phase's fields and the ``attention_vs_plain``
+    rows by case name.
+    """
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    cfg = get_config(SERVE_ARCH).replace(attention_impl="pallas")
+
+    # -- 5. serve ---------------------------------------------------------
+    serve, batch = serve_run(np, torch, cfg, counters, {"flash_attention": cfg.n_layers})
+    emit("serve", **serve)
 
     # -- 6. attention kernel against its plain version ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -567,71 +668,205 @@ def serve_phases(np, torch, fa, timing_scan):
             plain_ms=median_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, **kw), 3),
             bound_ms=bound_ms, bound_by=bound_by, flops=flops, library_ms=None,
         )
-        if name == "main_path":
-            # Library yardstick, timed only: (B, H, S, D) views of the same
-            # tensors, GQA by the library's own head grouping.
-            b = bhq // cfg.n_heads
-            q4 = q.view(b, cfg.n_heads, sq, d)
-            k4, v4 = (t.view(b, cfg.n_kv_heads, skv, d) for t in (k, v))
+        if name in ("main_path", "zamba2_shared"):
+            # Library yardstick on the serving shapes, timed only: the
+            # (BH, S, D) tensors as one batch row of BH heads; the library's
+            # GQA maps query head i to KV head i // group, as the fold does.
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q4, k4, v4, is_causal=True, enable_gqa=True
-            )
-            lib_err = float((sdpa().float() - want.view(b, cfg.n_heads, sq, d).float()).abs().max())
+                q[None], k[None], v[None], is_causal=True, enable_gqa=True
+            )[0]
+            lib_err = float((sdpa().float() - want.float()).abs().max())
             row.update(library_ms=median_ms(sdpa, 10), library_max_abs_err=lib_err)
         attention[name] = row
         emit("attention_vs_plain", **row)
 
-    # -- 7. serving prefill: kernel against the plain attention, depth 2 -------
-    shallow = cfg.replace(n_layers=2)
-    model = build_model(shallow, device=dev)
+    # -- 7, 8. kernel vs plain attention and card vs CPU, depth 2 -------------
+    shallow_checks(np, torch, "serve", cfg.replace(n_layers=2), batch, fa,
+                   "flash_attention_bhsd", relative=False, prompt_len=64)
+    return serve, attention
+
+
+def ssd_inputs(torch, gen, batch, heads, s, p, n, with_init, dtype):
+    """Model-layout scan inputs on the card, as a Mamba2 layer makes them:
+    x, dt > 0 (softplus), a_log, b, c and an optional initial state."""
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = draw(batch, s, heads, p).to(getattr(torch, dtype))
+    dt = torch.nn.functional.softplus(draw(batch, s, heads) - 1.0)
+    a_log = 0.5 * draw(heads)
+    b, c = draw(batch, s, n), draw(batch, s, n)
+    return x, dt, a_log, b, c, draw(batch, heads, p, n) if with_init else None
+
+
+def ssd_error(got, want, dtype):
+    """Max abs error and its tolerance: SSD_TOL of the output's own scale,
+    plus one bf16 ulp of that scale for a bf16 output (the cast's
+    rounding)."""
+    scale = float(want.float().abs().max())
+    tol = SSD_TOL * scale
+    if dtype == "bfloat16":
+        tol += 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return float((got.float() - want.float()).abs().max()), tol
+
+
+def logits_close(got, want, what, relative):
+    """Logits within LOGIT_TOL -- absolute, or (``relative``) of their
+    scale max(1, max |logit|) -- and the greedy first tokens equal wherever
+    the top-2 margin > MARGIN; returns the check's numbers."""
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = max(1.0, float(want.abs().max())) if relative else 1.0
+    err = float((got - want).abs().max())
+    check(err <= LOGIT_TOL * scale, f"{what}: logits off by {err} (scale {scale})")
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > MARGIN
+    same = torch.argmax(got, -1) == torch.argmax(want, -1)
+    check(bool((same | ~decided).all()), f"{what}: a decided first token differs")
+    return dict(max_abs_err=err, logit_scale=scale, tolerance=LOGIT_TOL * scale,
+                decided_first_tokens=int(decided.sum()), equal_first_tokens=int(same.sum()))
+
+
+def shallow_checks(np, torch, phase, cfg, batch, module, kernel, *, relative, prompt_len):
+    """The serving checks of a full-width model cut in depth (``cfg``),
+    whose prefill launches ``module.<kernel>`` once per layer, with the
+    logits held by ``logits_close(relative=...)``:
+
+    * ``<phase>_kernel_vs_plain``: ``batch``'s prefill with the kernel and
+      with its plain version (``<kernel>_plain``) forced, same weights;
+    * ``<phase>_card_vs_cpu``: the same weights on the CPU and on the card, two
+      ``prompt_len``-token prompts, prefill and 3 decode steps.
+    """
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    dev = torch.device("cuda")
+    counter = getattr(module, kernel)
+    fields = dict(arch=cfg.name, n_layers=cfg.n_layers, hybrid_period=cfg.hybrid_period)
+
+    model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     with torch.inference_mode():
-        before = fa.flash_attention_bhsd.launches
+        before = counter.launches
         kernel_logits, _ = model.prefill(params, batch)
-        check(fa.flash_attention_bhsd.launches == before + 2, "depth-2 prefill skipped the kernel")
-        with mock.patch.object(fa, "flash_attention_bhsd", fa.flash_attention_bhsd_plain):
+        check(counter.launches == before + cfg.n_layers,
+              f"{cfg.name}: depth-{cfg.n_layers} prefill skipped the kernel")
+        with mock.patch.object(module, kernel, getattr(module, f"{kernel}_plain")):
             plain_logits, _ = model.prefill(params, batch)
-        check(fa.flash_attention_bhsd.launches == before + 2, "the plain prefill launched the kernel")
-    err = float((kernel_logits.float() - plain_logits.float()).abs().max())
-    check(err <= LOGIT_TOL, f"serve kernel vs plain: logits off by {err}")
-    top2 = plain_logits.float().topk(2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > MARGIN
-    same = torch.argmax(kernel_logits, -1) == torch.argmax(plain_logits, -1)
-    check(bool((same | ~decided).all()), "serve kernel vs plain: a decided first token differs")
-    emit("serve_kernel_vs_plain", n_layers=2, max_abs_err=err, tolerance=LOGIT_TOL,
-         decided_first_tokens=int(decided.sum()), equal_first_tokens=int(same.sum()))
-    del model, params
+        check(counter.launches == before + cfg.n_layers,
+              f"{cfg.name}: the plain prefill launched the kernel")
+    emit(f"{phase}_kernel_vs_plain", **fields, **logits_close(
+        kernel_logits, plain_logits, f"{cfg.name} kernel vs plain", relative))
+    del model, params, kernel_logits, plain_logits
     torch.cuda.empty_cache()
 
-    # -- 8. serving on the card against the CPU, depth 2 -------------------------
-    cpu_model = build_model(shallow, device="cpu")
+    steps_n = 3
+    cpu_model = build_model(cfg, device="cpu")
     cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
-    card_model = build_model(shallow, device=dev)
+    card_model = build_model(cfg, device=dev)
     card_params = tree_map(lambda t: t.to(dev), cpu_params)
     prompts_cpu = torch.from_numpy(
-        np.random.default_rng(1).integers(2, cfg.vocab_size, (2, 64)).astype(np.int32)
+        np.random.default_rng(1).integers(2, cfg.vocab_size, (2, prompt_len)).astype(np.int32)
     )
-    errs = []
+    max_len = prompt_len + steps_n + 1
     with torch.inference_mode():
         cpu_logits, cpu_cache = cpu_model.prefill(cpu_params, {"tokens": prompts_cpu})
+        before = counter.launches
         card_logits, card_cache = card_model.prefill(card_params, {"tokens": prompts_cpu.to(dev)})
+        check(counter.launches == before + cfg.n_layers,
+              f"{cfg.name}: the card's prefill skipped the kernel")
         steps = [(cpu_logits, card_logits)]
-        cpu_cache = ServeEngine(cpu_model, cpu_params, max_len=68)._grow(cpu_cache, 2)
-        card_cache = ServeEngine(card_model, card_params, max_len=68)._grow(card_cache, 2)
-        for _ in range(3):
+        cpu_cache = ServeEngine(cpu_model, cpu_params, max_len=max_len)._grow(cpu_cache, 2)
+        card_cache = ServeEngine(card_model, card_params, max_len=max_len)._grow(card_cache, 2)
+        for _ in range(steps_n):
             tok = torch.argmax(steps[-1][0], dim=-1)[:, None].to(torch.int32)
             cpu_logits, cpu_cache = cpu_model.decode_step(cpu_params, cpu_cache, tok)
             card_logits, card_cache = card_model.decode_step(card_params, card_cache, tok.to(dev))
             steps.append((cpu_logits, card_logits))
-    for i, (want, got) in enumerate(steps):
-        err = float((got.cpu().float() - want.float()).abs().max())
-        check(err <= LOGIT_TOL, f"serve card vs CPU, step {i}: logits off by {err}")
-        errs.append(err)
-    emit("serve_card_vs_cpu", n_layers=2, prompts=[2, 64], decode_steps=3,
-         max_abs_err=errs, tolerance=LOGIT_TOL,
+    close = [
+        logits_close(got, want, f"{cfg.name} card vs CPU, step {i}", relative)
+        for i, (want, got) in enumerate(steps)
+    ]
+    emit(f"{phase}_card_vs_cpu", **fields, prompts=[2, prompt_len], decode_steps=steps_n,
+         max_abs_err=[c["max_abs_err"] for c in close],
+         tolerance=[c["tolerance"] for c in close],
          max_abs_logit=float(steps[0][0].float().abs().max()))
-    return serve, attention
+    del cpu_model, cpu_params, card_model, card_params, cpu_cache, card_cache
+    torch.cuda.empty_cache()
 
+
+def ssm_phases(np, torch, fa, ssd, counters):
+    """Phases 9-13: the SSD kernel, serving the ssm and hybrid families,
+    serving checks.
+
+    Returns the ``ssd_vs_plain`` rows by case name and the two serving
+    phases' fields.
+    """
+    from repro_torch.configs.registry import get_config
+
+    dev = torch.device("cuda")
+    s_main = len(max(serve_prompts(np, 2 ** 15), key=len))
+
+    # -- 9. the SSD kernel against its plain version ---------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    for name, batch, heads, s, p, n, chunk, with_init, dtype in SSD_CASES:
+        s = s or s_main
+        x, dt, a_log, b, c, init = ssd_inputs(torch, gen, batch, heads, s, p, n, with_init, dtype)
+        y, state = ssd.ssd_scan(x, dt, a_log, b, c, chunk=chunk, init_state=init)
+        with mock.patch.object(ssd, "ssd_scan_bhsp_cuda", ssd.ssd_scan_bhsp_plain):
+            want_y, want_state = ssd.ssd_scan(x, dt, a_log, b, c, chunk=chunk, init_state=init)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y.float()).all() and torch.isfinite(state).all()),
+              f"ssd {name}: not finite")
+        err_y, tol_y = ssd_error(y, want_y, dtype)
+        err_s, tol_s = ssd_error(state, want_state, "float32")
+        check(err_y <= tol_y, f"ssd {name}: y off by {err_y} > {tol_y}")
+        check(err_s <= tol_s, f"ssd {name}: final state off by {err_s} > {tol_s}")
+        # Times of the kernel and its plain version on the head-major inputs.
+        xdt, logd = ssd.head_major(x, dt, a_log)
+        h_init = None if init is None else init.reshape(batch * heads, p, n)
+        kw = dict(n_heads=heads, chunk=chunk, init_state=h_init)
+        bound_ms, bound_by, flops = ssd_bound(batch, heads, s, p, n, chunk, with_init)
+        row = dict(
+            case=name, batch=batch, heads=heads, s=s, p=p, n=n, chunk=chunk,
+            init_state=with_init, x_dtype=dtype,
+            max_abs_err=err_y, tolerance=tol_y,
+            state_max_abs_err=err_s, state_tolerance=tol_s,
+            ms=median_ms(lambda: ssd.ssd_scan_bhsp_cuda(xdt, logd, b, c, **kw), 10),
+            plain_ms=median_ms(lambda: ssd.ssd_scan_bhsp_plain(xdt, logd, b, c, **kw), 3),
+            bound_ms=bound_ms, bound_by=bound_by, flops=flops, library_ms=None,
+        )
+        rows[name] = row
+        emit("ssd_vs_plain", **row)
+    del x, dt, a_log, b, c, init, y, state, want_y, want_state, xdt, logd
+    torch.cuda.empty_cache()
+
+    # -- 10, 11. serve mamba2-130m and zamba2-1.2b at full width and depth -----
+    ssm_cfg = get_config(SSM_ARCH)
+    hybrid_cfg = get_config(HYBRID_ARCH).replace(attention_impl="pallas")
+    serve_ssm, ssm_batch = serve_run(
+        np, torch, ssm_cfg, counters, {"ssd_scan": ssm_cfg.n_layers}
+    )
+    emit("serve_ssm", **serve_ssm)
+    n_groups = hybrid_cfg.n_layers // hybrid_cfg.hybrid_period
+    serve_hybrid, hybrid_batch = serve_run(
+        np, torch, hybrid_cfg, counters,
+        {"ssd_scan": hybrid_cfg.n_layers, "flash_attention": n_groups},
+    )
+    emit("serve_hybrid", **serve_hybrid)
+
+    # -- 12, 13. kernel vs plain scan and card vs CPU, depth cut --------------
+    shallow = {
+        SSM_ARCH: (ssm_cfg.replace(n_layers=2), ssm_batch),
+        HYBRID_ARCH: (hybrid_cfg.replace(n_layers=3, hybrid_period=2), hybrid_batch),
+    }
+    for cfg, batch in shallow.values():
+        shallow_checks(np, torch, "serve_ssm", cfg, batch, ssd, "ssd_scan_bhsp",
+                       relative=True, prompt_len=300)
+    return rows, serve_ssm, serve_hybrid
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -5,4 +5,7 @@
 * `repro_torch.kernels.flash_attention` -- blocked online-softmax
   attention (``csrc/flash_attention.cu``), with its plain torch version,
   launch count and the model-layout wrapper.
+* `repro_torch.kernels.ssd_scan` -- the Mamba2 SSD chunked scan
+  (``csrc/ssd_scan.cu``), with its plain torch version, launch count and
+  the model-layout wrapper.
 """

@@ -15,6 +15,13 @@ card is present and skips without one.
   and within one bf16 ulp of the output magnitude in bfloat16, on the
   shapes ``chip_smoke.py``'s ``attention_vs_plain`` phase checks; every
   call on CUDA tensors launches the kernel once.
+* ``ssd_scan_bhsp``: y and the final state within 3e-4 of their own scale
+  of the plain version (the reference's kernel tolerance; a bf16 y also
+  within one bf16 ulp of its magnitude, the cast's rounding), on the
+  serving shapes of mamba2-130m and zamba2-1.2b and the edge cases of
+  ``chip_smoke.py``'s ``ssd_vs_plain`` phase; the model-layout wrapper
+  and the model's ``ssd_chunked`` launch the kernel and never run the
+  plain version on a card.
 """
 
 import math
@@ -40,6 +47,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bhsd,
     flash_attention_bhsd_plain,
 )
+from repro_torch.kernels import ssd_scan as ssd_lib
+from repro_torch.models import ssm
 from repro_torch.kernels.timing_scan import (
     timing_scan,
     timing_scan_cuda,
@@ -197,3 +206,106 @@ def test_model_layout_wrapper_launches_the_kernel():
     assert flash_attention_bhsd.launches == before + 1
     err = float((got.cpu().float() - want.float()).abs().max())
     assert err <= _attention_tolerance("bfloat16", want)
+
+
+# (name, batch, heads, S, P, N, chunk, with an initial state, x dtype): the
+# serving shapes (8 requests of 1895 tokens through mamba2-130m and
+# zamba2-1.2b), S shorter than a chunk, S a multiple of the chunk, an
+# initial state, a bf16 x through the model-layout wrapper, and P and N off
+# the kernel's tiles with a small chunk.
+SSD_CASES = [
+    ("mamba2_130m", 8, 24, 1895, 64, 128, 128, False, "float32"),
+    ("zamba2_1_2b", 8, 64, 1895, 64, 64, 128, False, "float32"),
+    ("short_37", 2, 3, 37, 64, 128, 128, False, "float32"),
+    ("multiple_256", 2, 4, 256, 64, 128, 128, False, "float32"),
+    ("init_state", 2, 4, 300, 64, 64, 128, True, "float32"),
+    ("bf16_x", 2, 4, 500, 64, 128, 128, False, "bfloat16"),
+    ("p80_n18_chunk48", 3, 2, 200, 80, 18, 48, True, "float32"),
+]
+
+
+def ssd_inputs(gen, batch, heads, s, p, n, with_init, dtype, device):
+    """Model-layout inputs as a Mamba2 layer makes them: x, dt > 0
+    (softplus), a_log, b, c, and an optional initial state."""
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x = draw(batch, s, heads, p).to(getattr(torch, dtype))
+    dt = torch.nn.functional.softplus(draw(batch, s, heads) - 1.0)
+    a_log = 0.5 * draw(heads)
+    b, c = draw(batch, s, n), draw(batch, s, n)
+    init = draw(batch, heads, p, n) if with_init else None
+    return x, dt, a_log, b, c, init
+
+
+def ssd_error(got, want, dtype):
+    """Max abs error and its tolerance: 3e-4 of the output's own scale,
+    plus one bf16 ulp of that scale for a bf16 output."""
+    scale = float(want.float().abs().max())
+    tol = 3e-4 * scale
+    if dtype == "bfloat16":
+        tol += 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return float((got.float() - want.float()).abs().max()), tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=[c[0] for c in SSD_CASES])
+def test_ssd_scan_kernel_matches_plain(case, monkeypatch):
+    _require_card()
+    name, batch, heads, s, p, n, chunk, with_init, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, dt, a_log, b, c, init = ssd_inputs(
+        gen, batch, heads, s, p, n, with_init, dtype, "cuda"
+    )
+    before = ssd_lib.ssd_scan_bhsp.launches
+    y, state = ssd_lib.ssd_scan(x, dt, a_log, b, c, chunk=chunk, init_state=init)
+    assert ssd_lib.ssd_scan_bhsp.launches == before + 1
+    with monkeypatch.context() as m:  # the plain version, on the card
+        m.setattr(ssd_lib, "ssd_scan_bhsp_cuda", ssd_lib.ssd_scan_bhsp_plain)
+        want_y, want_state = ssd_lib.ssd_scan(
+            x, dt, a_log, b, c, chunk=chunk, init_state=init
+        )
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert state.dtype == torch.float32 and state.shape == (batch, heads, p, n)
+    err, tol = ssd_error(y, want_y, dtype)
+    assert err <= tol, (name, "y", err, tol)
+    err, tol = ssd_error(state, want_state, "float32")
+    assert err <= tol, (name, "state", err, tol)
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_on_the_card_launches_the_kernel(monkeypatch):
+    """The model's chunked SSD reaches the kernel on CUDA tensors and never
+    the plain version; its result equals the CPU's within tolerance."""
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    args = ssd_inputs(gen, 2, 3, 150, 64, 128, True, "float32", "cuda")
+    x, dt, a_log, b, c, init = args
+    want_y, want_state = ssm.ssd_chunked(
+        *(t.cpu() for t in (x, dt, a_log, b, c)), chunk=128, init_state=init.cpu()
+    )
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain scan ran on a card")
+
+    monkeypatch.setattr(ssd_lib, "ssd_scan_bhsp_plain", refuse)
+    before = ssd_lib.ssd_scan_bhsp.launches
+    y, state = ssm.ssd_chunked(x, dt, a_log, b, c, chunk=128, init_state=init)
+    torch.cuda.synchronize()
+    assert ssd_lib.ssd_scan_bhsp.launches == before + 1
+    for got, want in ((y, want_y), (state, want_state)):
+        err, tol = ssd_error(got.cpu(), want, "float32")
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_does_not_take():
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, dt, a_log, b, c, _ = ssd_inputs(gen, 1, 2, 10, 8, 132, False, "float32", "cuda")
+    with pytest.raises(ValueError, match="state dim"):
+        ssd_lib.ssd_scan(x, dt, a_log, b, c)
+    x, dt, a_log, b, c, _ = ssd_inputs(gen, 1, 2, 300, 8, 16, False, "float32", "cuda")
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_lib.ssd_scan(x, dt, a_log, b, c, chunk=256)

@@ -1,4 +1,4 @@
-"""The port's decoder model against the reference's, on the CPU.
+"""The port's models against the reference's, on the CPU.
 
 Both models get the same weights: the reference's ``init_params`` draws
 them and ``repro_torch.models.convert.params_from_jax`` hands them to the
@@ -7,7 +7,10 @@ embeddings) and of ``h2o_danube3_4b`` (sliding window 16, untied head),
 with ``attention_impl`` ``xla`` and ``pallas`` (the reference's Pallas
 kernel in interpret mode, the port's plain flash attention), prefill
 logits and KV cache agree, then 4 teacher-forced ``decode_step``s agree at
-every step.
+every step.  The same holds for the smoke configs of ``mamba2_130m`` (2
+Mamba2 layers) and ``zamba2_1_2b`` (2 groups of 2 Mamba2 layers around the
+shared attention block, then 1), the hybrid with both attentions, their
+conv and SSM state caches included.
 
 Tolerances.  In bf16 compute (the models' own) the two frameworks round
 products and sums at different places.  Logits are held to atol = rtol =
@@ -20,6 +23,8 @@ equal, the later layers' are held within 0.05 of the cache's own scale.
 With the compute dtype set to float32 in both packages the models agree
 to 1e-4, which pins the semantics independently of bf16 rounding.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -260,8 +265,6 @@ def test_building_blocks_match_reference(name):
     [
         ("qwen2_moe_a2_7b", "moe"),
         ("llama4_scout_17b_16e", "moe"),
-        ("mamba2_130m", "ssm"),
-        ("zamba2_1_2b", "hybrid"),
         ("whisper_small", "audio"),
     ],
 )
@@ -274,3 +277,145 @@ def test_sequence_parallel_raises():
     cfg = smoke_config("qwen2_1_5b").replace(sequence_parallel=True)
     with pytest.raises(NotImplementedError, match="item 12"):
         build_model(cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The ssm (Mamba2) and hybrid (Zamba2) families: the smoke configs of
+# ``mamba2_130m`` (2 Mamba2 layers) and ``zamba2_1_2b`` (5 Mamba2 layers in
+# 2 groups of 2 around the shared attention block, then 1 trailing layer).
+# Prefill logits and caches, then 4 teacher-forced decode steps, at the
+# tolerances above; the hybrid with ``xla`` and ``pallas`` attention.
+
+SSM_CASES = [
+    ("mamba2_130m", "xla"),
+    ("zamba2_1_2b", "xla"),
+    ("zamba2_1_2b", "pallas"),
+]
+
+
+@functools.cache
+def _ssm_weights(arch):
+    """(JAX params, the same params as the port's tree)."""
+    params = jax_build_model(jax_smoke_config(arch), CTX).init(jax.random.PRNGKey(0))
+    return params, params_from_jax(jax.tree.map(np.asarray, params))
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "zamba2_1_2b"])
+def test_params_from_jax_carries_ssm_trees(arch):
+    """Mamba2 leaves, and the hybrid's doubly stacked ``groups``, its
+    ``trailing`` stack and its ``shared`` block, convert leaf for leaf."""
+    jparams, tparams = _ssm_weights(arch)
+    cfg = smoke_config(arch)
+    specs = build_model(cfg, device="cpu").specs
+    assert tree_map(lambda t: tuple(t.shape), tparams) == tree_map(
+        lambda s: s.shape, specs
+    )
+    assert sum(t.numel() for t in tree_leaves(tparams)) == param_count(specs)
+    for got, want in zip(tree_leaves(tparams), jax.tree.leaves(jparams)):
+        assert got.dtype == torch.float32
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    d_inner, heads = cfg.d_inner, cfg.n_ssm_heads
+    if arch == "mamba2_130m":
+        mamba = tparams["layers"]["mamba"]
+        assert tuple(mamba["w_zx"].shape) == (cfg.n_layers, cfg.d_model, 2 * d_inner)
+    else:
+        groups, trailing = lm._hybrid_layout(cfg)
+        mamba = tparams["groups"]["mamba"]
+        assert tuple(mamba["w_zx"].shape) == (
+            groups, cfg.hybrid_period, cfg.d_model, 2 * d_inner
+        )
+        assert tuple(tparams["trailing"]["mamba"]["a_log"].shape) == (trailing, heads)
+        assert set(tparams["shared"]) == {"ln1", "attn", "ln2", "ffn"}
+    assert tuple(mamba["a_log"].shape[-1:]) == (heads,)
+
+
+def _grow_shared(cache: dict, slots: int, pad):
+    out = dict(cache)
+    for name in ("shared_k", "shared_v"):
+        if name in cache:
+            out[name] = pad(cache[name], slots - cache[name].shape[2])
+    return out
+
+
+def _jax_pad_seq(x, n):
+    return jnp.pad(x, ((0, 0), (0, 0), (0, n), (0, 0), (0, 0)))
+
+
+def _torch_pad_seq(x, n):
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n))
+
+
+def _run_ssm_models(arch, impl, jparams, tparams, tokens, prompt, n_decode):
+    """Prefill ``tokens[:, :prompt]`` and teacher-force ``n_decode`` steps
+    through both models; returns the per-step (port, reference) logits
+    and the two prefill caches."""
+    jmodel = jax_build_model(jax_smoke_config(arch).replace(attention_impl=impl), CTX)
+    tmodel = build_model(smoke_config(arch).replace(attention_impl=impl), device="cpu")
+    with set_mesh_compat(CTX.mesh):
+        jlogits, jcache = jax.jit(jmodel.prefill)(
+            jparams, {"tokens": jnp.asarray(tokens[:, :prompt])}
+        )
+    with torch.inference_mode():
+        tlogits, tcache = tmodel.prefill(
+            tparams, {"tokens": torch.from_numpy(tokens[:, :prompt])}
+        )
+    # Copies: the port's decode steps update its cache in place.
+    caches = (
+        {k: np.array(_f32(v)) for k, v in tcache.items()},
+        {k: np.array(_f32(v)) for k, v in jcache.items()},
+    )
+    steps = [(tlogits, jlogits)]
+    slots = prompt + n_decode
+    jcache = _grow_shared(jcache, slots, _jax_pad_seq)
+    tcache = _grow_shared(tcache, slots, _torch_pad_seq)
+    jdecode = jax.jit(jmodel.decode_step)
+    for t in range(prompt, prompt + n_decode):
+        step = tokens[:, t : t + 1]
+        with set_mesh_compat(CTX.mesh):
+            jlogits, jcache = jdecode(jparams, jcache, jnp.asarray(step))
+        with torch.inference_mode():
+            tlogits, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(step))
+        assert np.array_equal(tcache["length"].numpy(), np.asarray(jcache["length"]))
+        steps.append((tlogits, jlogits))
+    return steps, caches
+
+
+@pytest.mark.parametrize("arch,impl", SSM_CASES, ids=[f"{a}-{i}" for a, i in SSM_CASES])
+def test_ssm_prefill_and_decode_match_reference(arch, impl):
+    jparams, tparams = _ssm_weights(arch)
+    tokens = np.random.default_rng(0).integers(2, 256, (BATCH, PROMPT + N_DECODE))
+    tokens = tokens.astype(np.int32)
+    steps, (tcache, jcache) = _run_ssm_models(
+        arch, impl, jparams, tparams, tokens, PROMPT, N_DECODE
+    )
+    assert steps[0][0].dtype == torch.bfloat16
+    for i, (tl, jl) in enumerate(steps):
+        _close(tl, jl, f"{arch}/{impl} step {i} logits", _scale(jl))
+    assert set(tcache) == set(jcache)
+    for name in sorted(set(tcache) - {"length"}):
+        assert tcache[name].shape == jcache[name].shape, name
+        _close(
+            tcache[name], jcache[name], f"{arch}/{impl} prefill cache {name}",
+            scale=max(1.0, float(np.abs(jcache[name]).max())),
+        )
+    assert np.array_equal(tcache["length"], jcache["length"])
+
+
+@pytest.mark.parametrize("arch,impl", SSM_CASES, ids=[f"{a}-{i}" for a, i in SSM_CASES])
+def test_ssm_float32_compute_matches_reference(arch, impl, monkeypatch):
+    """With the compute dtype float32 in both packages: logits and caches
+    within 1e-4, prefill and 2 decode steps."""
+    jparams, tparams = _ssm_weights(arch)
+    monkeypatch.setattr(jax_lm, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(lm, "COMPUTE_DTYPE", torch.float32)
+    tokens = np.random.default_rng(1).integers(2, 256, (BATCH, PROMPT + 2))
+    tokens = tokens.astype(np.int32)
+    steps, (tcache, jcache) = _run_ssm_models(
+        arch, impl, jparams, tparams, tokens, PROMPT, 2
+    )
+    assert steps[0][0].dtype == torch.float32
+    for i, (tl, jl) in enumerate(steps):
+        _close(tl, jl, f"f32 {arch}/{impl} step {i}", tol=1e-4)
+    for name in sorted(set(tcache) - {"length"}):
+        want = jcache[name]
+        _close(tcache[name], want, name, max(1.0, float(np.abs(want).max())), tol=1e-4)

@@ -9,6 +9,11 @@ the port's tokens must equal the reference's wherever the reference's
 top-2 logit margin at that step exceeds 0.1 (below that, bf16 rounding may
 flip the argmax; a request is followed only up to its first such flip).
 
+The decoder (qwen2-1.5B smoke config) and the ssm and hybrid families
+(mamba2-130m and zamba2-1.2b smoke configs, the hybrid with ``xla`` and
+``pallas`` attention) are served; the launcher serves each family on the
+CPU, and the ssm family reaches no attention code.
+
 The tied embedding of the smoke model is scaled by 10, in both models
 alike, so that its logits spread as a trained model's do (about +-5);
 with the init's 0.02 scale they stay within +-0.5 and nearly every step
@@ -65,8 +70,27 @@ def _teacher_forced_logits(prefill, decode, tokens, n_steps, grow):
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_generate_matches_reference_engine(impl):
-    jcfg = jax_smoke_config("qwen2_1_5b").replace(attention_impl=impl)
-    tcfg = smoke_config("qwen2_1_5b").replace(attention_impl=impl)
+    _check_generate("qwen2_1_5b", impl)
+
+
+# The ssm (Mamba2) and hybrid (Zamba2, shared attention block) families.
+SSM_CASES = [
+    ("mamba2_130m", "xla"),
+    ("zamba2_1_2b", "xla"),
+    ("zamba2_1_2b", "pallas"),
+]
+
+
+@pytest.mark.parametrize("arch,impl", SSM_CASES, ids=[f"{a}-{i}" for a, i in SSM_CASES])
+def test_ssm_generate_matches_reference_engine(arch, impl):
+    _check_generate(arch, impl)
+
+
+def _check_generate(arch, impl):
+    """Generate through both engines; teacher-force the reference's tokens
+    through both models and compare every step."""
+    jcfg = jax_smoke_config(arch).replace(attention_impl=impl)
+    tcfg = smoke_config(arch).replace(attention_impl=impl)
     jmodel = jax_build_model(jcfg, CTX)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     jparams = {**jparams, "embedding": jparams["embedding"] * EMBED_SCALE}
@@ -148,6 +172,54 @@ def test_launcher_serves_on_the_cpu(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 3
     assert all("prompt tokens -> [" in line for line in lines)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "zamba2_1_2b"])
+def test_launcher_serves_ssm_families_on_the_cpu(arch, capsys):
+    serve_launch.main(
+        ["--arch", arch, "--device", "cpu", "--requests", "2", "--max-new-tokens", "4"]
+    )
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 2
+    assert all("prompt tokens -> [" in line for line in lines)
+
+
+def test_grow_keeps_states_and_grows_shared_kv():
+    """``_grow`` leaves the recurrent states as they are and pads each
+    shared-block invocation's KV cache to ``max_len``."""
+    cfg = smoke_config("zamba2_1_2b")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": torch.full((2, 7), 3, dtype=torch.int32)})
+    grown = ServeEngine(model, params, max_len=20)._grow(cache, 2)
+    assert grown["conv"] is cache["conv"] and grown["ssm"] is cache["ssm"]
+    for name in ("shared_k", "shared_v"):
+        assert grown[name].shape[2] == 20
+        assert torch.equal(grown[name][:, :, :7], cache[name])
+        assert not grown[name][:, :, 7:].any()
+
+
+def test_ssm_family_reaches_no_attention(monkeypatch):
+    """mamba2 (``n_heads=0``) serves without touching any attention code."""
+    from repro_torch.kernels import flash_attention as flash_lib
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import lm
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the ssm family reached attention code")
+
+    monkeypatch.setattr(flash_lib, "flash_attention", refuse)
+    monkeypatch.setattr(attn_lib, "blocked_attention", refuse)
+    monkeypatch.setattr(lm, "decode_attention", refuse)
+    cfg = smoke_config("mamba2_130m")
+    assert cfg.n_heads == 0
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    out = ServeEngine(model, params, max_len=32).generate(
+        [Request(prompt=[5, 6, 7], max_new_tokens=3), Request(prompt=[9] * 20, max_new_tokens=2)]
+    )
+    assert [len(c.tokens) for c in out] == [3, 2]
 
 
 def test_serving_loads_neither_jax_nor_reference():

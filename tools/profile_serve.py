@@ -3,12 +3,14 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 tools/profile_serve.py [--layers N] [--steps N]
+    python3 tools/profile_serve.py [--arch ID] [--layers N] [--steps N]
 
-It builds ``chip_smoke.py``'s serving configuration -- full-width
-qwen2-1.5B (28 layers unless ``--layers``), random weights from seed 0,
-attention through the ``flash_attention`` kernel, 8 requests of 1024-2048
-prompt tokens from ``numpy.random.default_rng(0)`` -- warms it up, then
+It builds one of ``chip_smoke.py``'s serving configurations -- full-width
+qwen2-1.5B (the default), mamba2-130m or zamba2-1.2b (``--arch``), at full
+depth unless ``--layers``, random weights from seed 0, attention through
+the ``flash_attention`` kernel and the Mamba2 scan through the
+``ssd_scan`` kernel, 8 requests of 1024-2048 prompt tokens from
+``numpy.random.default_rng(0)`` -- warms it up, then
 profiles one prefill and ``--steps`` decode steps with ``torch.profiler``
 (CPU and CUDA activities), each window on its own.  For each window it
 prints one JSON line: the profiled wall time, the device's summed kernel
@@ -31,6 +33,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--arch", default="qwen2_1_5b")
     parser.add_argument("--layers", type=int, default=None)
     parser.add_argument("--steps", type=int, default=8)
     args = parser.parse_args()
@@ -51,7 +54,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0], flush=True)
-    cfg = get_config("qwen2_1_5b").replace(attention_impl="pallas")
+    cfg = get_config(args.arch).replace(attention_impl="pallas")
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
     rng = np.random.default_rng(0)
@@ -89,6 +92,7 @@ def main() -> int:
         device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         print(json.dumps({
             "window": name,
+            "arch": cfg.name,
             "layers": cfg.n_layers,
             "device": torch.cuda.get_device_name(0),
             "profiled_wall_ms": wall_ms,

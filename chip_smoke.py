@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (into ``build/repro_torch/``, one ``nvcc`` per source, all started
-together), then, each phase printing one JSON line:
+together: ``timing_scan``, ``flash_attention``, ``ssd_scan``, ``rmsnorm``
+and ``fused_reduce``), then, each phase printing one JSON line:
 
 1. ``card`` / ``build``: the card's name and power limit, each kernel's
    build time;
@@ -27,22 +28,29 @@ together), then, each phase printing one JSON line:
    and a 64-cell INDEPENDENT grid (packing and water-fill splitting);
 5. ``serve``: ``ServeEngine.generate`` through full-width qwen2-1.5B (28
    layers, random weights from seed 0, attention through the
-   ``flash_attention`` kernel) on 8 requests of 1024-2048 prompt tokens
-   x 32 new tokens: prefill cold and warm, decode per step, tokens/s, peak
-   memory, every kernel's launch count read around one ``generate`` (28
-   flash-attention launches, no other kernel), the generated tokens;
+   ``flash_attention`` kernel, every RMSNorm through the ``rmsnorm``
+   kernel) on 8 requests of 1024-2048 prompt tokens x 32 new tokens:
+   prefill cold and warm, decode per step, tokens/s, peak memory, every
+   kernel's launch count read around one ``generate`` -- exactly the
+   count worked out from the model code (``generate_launches``: 28
+   flash-attention launches, 57 norms x 33 forwards = 1881 RMSNorm
+   launches, no other kernel) -- and the generated tokens;
 6. ``attention_vs_plain``: the ``flash_attention`` kernel against its
-   plain torch version on the serving shapes of qwen2-1.5B and of
-   zamba2-1.2b's shared block and on head dims 120 (with a window), 256
-   and 16, a float32 case and a ragged length, with warm median times, and
-   ``scaled_dot_product_attention`` timed on the qwen2 shape as the
+   plain torch version on the serving shapes of qwen2-1.5B, of
+   zamba2-1.2b's shared block and of gemma-2b (head dim 256, 8 query
+   heads per KV head) and on head dims 120 (with a window), 256 and 16, a
+   float32 case and a ragged length, with warm median times, and
+   ``scaled_dot_product_attention`` timed on the serving shapes as the
    library yardstick;
 7. ``serve_kernel_vs_plain``: the 8 requests' prefill through a 2-layer
-   full-width model with the kernel and with the plain attention forced,
-   logits within 0.05;
+   full-width model with every kernel, and with one kernel's plain
+   version forced at a time (flash attention, then RMSNorm), logits
+   within 0.05;
 8. ``serve_card_vs_cpu``: a 2-layer full-width model with the same
    weights on the CPU and on the card, two 64-token prompts, prefill and
-   3 decode steps, logits within 0.05;
+   3 decode steps, logits within 0.05, three runs with the same weights
+   and prompts (each run's logits also compared bitwise with the first
+   run's, on each side; the host's CPU capability beside them);
 9. ``ssd_vs_plain``: the ``ssd_scan`` kernel against its plain torch
    version (y and the final state within 3e-4 of their scale) on the
    serving shapes of mamba2-130m (8 x 24 rows of 1895 x 64, state 128)
@@ -50,18 +58,42 @@ together), then, each phase printing one JSON line:
    of the chunk, an initial state, a bf16 x, and P and N off the tiles,
    with warm median times and the bound (no library call computes it);
 10. ``serve_ssm``: the same requests through full-width mamba2-130m (24
-    Mamba2 layers, random weights from seed 0), 24 ``ssd_scan`` launches
-    around one ``generate``;
+    Mamba2 layers, random weights from seed 0), 24 ``ssd_scan`` and
+    49 x 33 = 1617 ``rmsnorm`` launches around one ``generate``;
 11. ``serve_hybrid``: the same through full-width zamba2-1.2b (38 Mamba2
     layers in 6 groups of 6 around one shared attention block, then 2),
-    38 ``ssd_scan`` and 6 ``flash_attention`` launches;
+    38 ``ssd_scan``, 6 ``flash_attention`` and 89 x 33 = 2937
+    ``rmsnorm`` launches;
 12. ``serve_ssm_kernel_vs_plain``: the requests' prefill through mamba2
     cut to 2 layers and zamba2 cut to 3 (one group of 2, one trailing),
-    with the kernel and with the plain scan forced;
+    with every kernel, and with one kernel's plain version forced at a
+    time;
 13. ``serve_ssm_card_vs_cpu``: those cut models with the same weights on
     the CPU and on the card, two 300-token prompts, prefill and 3 decode
-    steps.  Phases 12 and 13 hold the logits within 0.05 of their scale
-    (max(1, max |logit|)), phases 7 and 8 within 0.05 absolute.
+    steps;
+14. ``rmsnorm_vs_plain``: the ``rmsnorm`` kernel against its plain torch
+    version (one bf16 ulp of the output's magnitude, 1e-5 of it in
+    float32) on the prefill norms of qwen2-1.5B, mamba2-130m, zamba2-1.2b
+    and gemma-2b (8 x 1895 rows), a decode step, float32 x, a bf16 weight,
+    D = 48 and 1234 and T = 7, with warm median times, the bound and
+    ``torch.nn.functional.rms_norm`` as the library yardstick;
+15. ``serve_gemma``: the same requests through full-width gemma-2b (18
+    layers, d_model 2048, 8 query heads over 1 KV head of 256, GeGLU,
+    vocab 256,000, (1 + w) RMSNorm), 18 ``flash_attention`` and 37 x 33 =
+    1221 ``rmsnorm`` launches;
+16. ``serve_gemma_kernel_vs_plain`` / ``serve_gemma_card_vs_cpu``: gemma
+    cut to 2 layers, as phases 7 and 8 (one card-vs-CPU run).  Phases 12,
+    13 and 16 hold the logits within 0.05 of their scale (max(1, max
+    |logit|)), phases 7 and 8 within 0.05 absolute;
+17. ``reduce_vs_plain``: the ``fused_reduce`` kernel bitwise against its
+    plain torch version on the kernel bench's 2^20 bf16, 8 M float32,
+    192,964,288 bf16, bf16 summed into float32 and odd sizes, with warm
+    median times, the bound and ``torch.add`` (where it computes the same
+    function) as the library yardstick;
+18. ``kernel_bench``: ``repro_torch.benchmarks.kernel_bench`` on the card
+    (the reference's one path to ``fused_reduce``), every kernel count
+    set to 0 just before it and read just after; its six rows finite and
+    within their error limits.
 
 Then one line listing each kernel with its numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -87,9 +119,6 @@ SRC = ROOT / "src"
 N_NODES, N_PLANES = 128, 8
 SIZES = tuple(1e6 * (1 + i) for i in range(32))
 RECFGS = tuple(12.5e-6 * (1 + i) for i in range(32))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-FP64_FLOPS = 34e12  # H100 SXM fp64 outside the tensor cores, data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16; fp32 CUDA cores
 KERNELS = {
     "timing_scan": ("src/repro_torch/kernels/csrc/timing_scan.cu",
                     "src/repro/kernels/timing_scan.py:47"),
@@ -97,9 +126,15 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:32"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:31"),
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:23"),
+    "fused_reduce": ("src/repro_torch/kernels/csrc/fused_reduce.cu",
+                     "src/repro/kernels/fused_reduce.py:25"),
 }
 SERVE_ARCH = "qwen2_1_5b"
 SSM_ARCH, HYBRID_ARCH = "mamba2_130m", "zamba2_1_2b"
+GEMMA_ARCH = "gemma_2b"
+CARD_VS_CPU_RUNS = 3  # runs of qwen2's card-vs-CPU check, same prompts
 SSD_TOL = 3e-4  # of the output's own scale: the reference's kernel atol
 # (name, batch, heads, S, P, N, chunk, with an initial state, x dtype); S
 # None: the serving phases' padded prompt length.  The two serving shapes
@@ -121,15 +156,49 @@ MARGIN = 0.1  # top-2 logit margin above which greedy tokens must agree
 # (name, BHq, BHkv, Sq, Skv, D, dtype, causal, window); Sq, Skv None: the
 # serving phases' padded prompt length.  "main_path" is qwen2-1.5B's shape
 # (8 x 12 query heads over 8 x 2 KV heads of 128), "zamba2_shared" the
-# zamba2-1.2b shared block's (8 x 32 heads of 64, no grouping).
+# zamba2-1.2b shared block's (8 x 32 heads of 64, no grouping), "gemma_2b"
+# gemma-2b's (8 x 8 query heads over 8 x 1 KV head of 256).
 ATTENTION_CASES = [
     ("main_path", 96, 16, None, None, 128, "bfloat16", True, None),
     ("zamba2_shared", 256, 256, None, None, 64, "bfloat16", True, None),
+    ("gemma_2b", 64, 8, None, None, 256, "bfloat16", True, None),
     ("d120_window", 32, 8, 1024, 1024, 120, "bfloat16", True, 512),
     ("d256_group1", 8, 8, 1024, 1024, 256, "bfloat16", True, None),
     ("d16", 12, 4, 300, 300, 16, "bfloat16", True, None),
     ("float32", 24, 12, 500, 777, 64, "float32", False, None),
     ("ragged_2000", 24, 4, 2000, 2000, 128, "bfloat16", True, None),
+]
+# (name, T, D, x dtype, w dtype, offset, gated); T None: the serving
+# requests' padded prompt tokens (8 x 1895).  The serving paths' prefill
+# norms -- qwen2-1.5B's layer norm, mamba2-130m's and zamba2-1.2b's gated
+# norm (x = y * silu(z)), gemma-2b's (1 + w) norm -- a decode step, float32
+# x, a bf16 weight, D off the 16-byte vector width, and T = 7.
+RMSNORM_CASES = [
+    ("qwen2_prefill", None, 1536, "bfloat16", "float32", False, False),
+    ("mamba2_gated", None, 1536, "bfloat16", "float32", False, True),
+    ("zamba2_gated", None, 4096, "bfloat16", "float32", False, True),
+    ("gemma_prefill", None, 2048, "bfloat16", "float32", True, False),
+    ("decode", 8, 2048, "bfloat16", "float32", True, False),
+    ("float32", 4096, 1536, "float32", "float32", False, False),
+    ("bf16_weight", 4096, 2048, "bfloat16", "bfloat16", True, False),
+    ("d48", 1024, 48, "bfloat16", "float32", False, False),
+    ("d1234", 300, 1234, "bfloat16", "float32", True, False),
+    ("t7", 7, 2048, "float32", "float32", True, False),
+]
+# (name, shape, input dtype, output dtype): the kernel bench's 2^20 bf16,
+# 8 M float32, 192,964,288 bf16 (large enough for the bytes bound to be
+# read), a bf16 sum kept in float32, and odd sizes.
+REDUCE_CASES = [
+    ("bench_2^20", (1 << 20,), "bfloat16", "bfloat16"),
+    ("f32_8M", (8388608,), "float32", "float32"),
+    ("bf16_193M", (192964288,), "bfloat16", "bfloat16"),
+    ("bf16_to_f32_8M", (8388608,), "bfloat16", "float32"),
+    ("odd_17", (17,), "float32", "float32"),
+    ("odd_17_bf16", (17,), "bfloat16", "bfloat16"),
+    ("odd_3x5x7", (3, 5, 7), "bfloat16", "float32"),
+    ("odd_3x5x7_f16", (3, 5, 7), "float16", "float16"),
+    ("odd_100000", (100000,), "bfloat16", "bfloat16"),
+    ("odd_100000_f32", (100000,), "float32", "float32"),
 ]
 
 
@@ -143,21 +212,12 @@ def check(cond: bool, what: str) -> None:
 
 
 def median_ms(fn, reps):
-    """Warm median of ``reps`` CUDA-event-timed calls of ``fn``."""
-    import torch
+    """Warm median of ``reps`` CUDA-event-timed samples of ``fn``, in ms a
+    call: ``repro_torch.benchmarks.kernel_bench.device_us``, whose samples
+    batch back-to-back calls to span at least 1 ms of the card's time."""
+    from repro_torch.benchmarks.kernel_bench import device_us
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return device_us(fn, reps) / 1e3
 
 
 def wall_ms(fn):
@@ -176,51 +236,6 @@ def attention_tolerance(dtype: str, want) -> float:
     if dtype == "float32":
         return 2e-5
     return 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7)
-
-
-def attention_bound(q, k, causal, window):
-    """Least time for the attention: bytes (q, k, v, o once) at HBM rate
-    vs the two products' FLOPs over the unmasked (query, key) pairs at the
-    inputs' peak rate; returns (ms, "bytes" | "operations", flops)."""
-    import torch
-
-    bhq, sq, d = q.shape
-    skv = k.shape[1]
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    kv_pos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kv_pos <= q_pos
-    if window is not None:
-        mask &= q_pos - kv_pos < window
-    flops = 4 * bhq * d * int(mask.sum())
-    n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops
-
-
-
-def ssd_bound(bsz, heads, s, p, n, chunk, with_init):
-    """Least time for the chunked scan on head-major float32 inputs: bytes
-    (xdt, logd, b, c and the initial state read once, y and the final
-    state written once) at HBM rate vs the products' FLOPs at the float32
-    rate.  Per chunk of q positions: C.B^T over the q(q+1)/2 causal pairs
-    (2N each) once per batch row, since every head reads the same B and C;
-    per row (batch x heads) the scores' product with xdt over those pairs
-    (2P each), C.S^T and the state update (2qNP each).  Returns (ms,
-    "bytes" | "operations", flops)."""
-    rows = bsz * heads
-    chunk = min(chunk, s)
-    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
-    pairs = [q * (q + 1) // 2 for q in lens]
-    flops = bsz * sum(2 * n * t for t in pairs)
-    flops += rows * sum(2 * p * t + 4 * q * n * p for q, t in zip(lens, pairs))
-    n_bytes = 4 * (2 * rows * s * p + rows * s + 2 * bsz * s * n
-                   + (2 if with_init else 1) * rows * p * n)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops
 
 
 def main() -> int:
@@ -250,8 +265,11 @@ def main() -> int:
     from repro_torch.core.convert import packed_from_numpy
     from repro_torch.core.ir import pack_instances
     from repro_torch.core.patterns import pairwise_alltoall, rabenseifner_allreduce
+    from repro_torch.benchmarks import roofline
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_reduce as fr
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.timing_scan import (
         timing_scan,
@@ -295,13 +313,23 @@ def main() -> int:
     def timed_plan(req):
         return wall_ms(lambda: plan(req))
 
+    # Each kernel's launch counter, and the dispatcher that a kernel-vs-
+    # plain check replaces with the plain version (module, name).
+    counters = {
+        "timing_scan": timing_scan,
+        "flash_attention": fa.flash_attention_bhsd,
+        "ssd_scan": ssd.ssd_scan_bhsp,
+        "rmsnorm": rn.rmsnorm_2d,
+        "fused_reduce": fr.fused_reduce_flat,
+    }
     torch.cuda.reset_peak_memory_stats()
-    timing_scan.launches = fa.flash_attention_bhsd.launches = ssd.ssd_scan_bhsp.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     result, cold_ms = timed_plan(request)
     launches = timing_scan.launches
     check(launches == 2, f"plan() launched timing_scan {launches} times, want 2")
-    check(fa.flash_attention_bhsd.launches == 0, "plan() launched flash_attention")
-    check(ssd.ssd_scan_bhsp.launches == 0, "plan() launched ssd_scan")
+    for name, fn in counters.items():
+        check(name == "timing_scan" or fn.launches == 0, f"plan() launched {name}")
     _, warm_ms = timed_plan(request)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     att_result, att_ms = timed_plan(
@@ -372,20 +400,6 @@ def main() -> int:
     )
 
     # -- kernel against its plain version, on the card -----------------------
-    def bound(tensors, outs):
-        """Least time for the work: bytes at HBM rate vs fp64 ops at peak."""
-        n_bytes = sum(t.numel() * t.element_size() for t in tensors.values())
-        n_bytes += sum(t.numel() * t.element_size() for t in outs)
-        live = tensors["step_mask"][:, :, None] & tensors["plane_mask"][:, None, :]
-        hops = (tensors["byp_plane"] >= 0) & (tensors["byp_vol"] > 0)[..., None]
-        # Per live (step, plane): divide, add, max, busy add, step max;
-        # per live step: 5 conservation/barrier ops; per hop: 5.
-        ops = 5 * int(live.sum()) + 5 * int(tensors["step_mask"].sum())
-        ops += 5 * int(hops.sum())
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP64_FLOPS * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
     bypass_pattern = {s: pairwise_alltoall(8, s) for s in (1e6 * (1 + i) for i in range(8))}
     bypass_cells = [
         (OpticalFabric(8, 4, t_recfg=t).prestaged(p.steps[0].config), p)
@@ -425,7 +439,7 @@ def main() -> int:
             )
             ms = median_ms(lambda: timing_scan_cuda(tensors, attribution=attribution), 20)
             plain_ms = median_ms(lambda: timing_scan_plain(tensors, attribution=attribution), 3)
-            bound_ms, bound_by = bound(tensors, got)
+            bound_ms, bound_by = roofline.timing_scan_bound(tensors, got)
             row = dict(
                 batch=name, attribution=attribution,
                 shape=list(tensors["vol"].shape) + [tensors["byp_vol"].shape[2], tensors["byp_plane"].shape[3]],
@@ -479,56 +493,37 @@ def main() -> int:
          bypass_cells_with_relays=n_relay, independent_cells=len(indep_cells),
          bitwise_equal=True, seconds=time.perf_counter() - t0)
 
-    # -- serving: full-width qwen2-1.5B through the flash-attention kernel ---
-    counters = {
-        "timing_scan": timing_scan,
-        "flash_attention": fa.flash_attention_bhsd,
-        "ssd_scan": ssd.ssd_scan_bhsp,
-    }
-    serve, attention = serve_phases(np, torch, fa, counters)
-    ssd_rows, serve_ssm, _ = ssm_phases(np, torch, fa, ssd, counters)
+    # -- serving, the kernels of the serving paths, the kernel bench ---------
+    serve, attention = serve_phases(np, torch, counters)
+    ssd_rows, serve_ssm, _ = ssm_phases(np, torch, counters)
+    norm_rows, serve_gemma = norm_phases(np, torch, counters)
+    reduce_rows = reduce_phase(torch)
+    bench_launches = bench_phase(torch, counters)
 
-    main_row = rows[("greedy", False)]
-    print(json.dumps({"kernels": [
-        {
-            "name": "timing_scan",
+    def kernel_row(name, rows, main_case, n_launches, library=True):
+        main = rows[main_case]
+        return {
+            "name": name,
             "route": "cuda",
-            "source": KERNELS["timing_scan"][0],
-            "replaces": KERNELS["timing_scan"][1],
-            "launches": launches,
+            "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1],
+            "launches": n_launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            "ms": main_row["ms"],
-            "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
-            "library_ms": None,
-        },
-        {
-            "name": "flash_attention",
-            "route": "cuda",
-            "source": KERNELS["flash_attention"][0],
-            "replaces": KERNELS["flash_attention"][1],
-            "launches": serve["flash_attention_launches"],
-            "max_abs_err": max(r["max_abs_err"] for r in attention.values()),
-            "ms": attention["main_path"]["ms"],
-            "plain_ms": attention["main_path"]["plain_ms"],
-            "bound_ms": attention["main_path"]["bound_ms"],
-            "bound_by": attention["main_path"]["bound_by"],
-            "library_ms": attention["main_path"]["library_ms"],
-        },
-        {
-            "name": "ssd_scan",
-            "route": "cuda",
-            "source": KERNELS["ssd_scan"][0],
-            "replaces": KERNELS["ssd_scan"][1],
-            "launches": serve_ssm["ssd_scan_launches"],
-            "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
-            "ms": ssd_rows[SSM_ARCH]["ms"],
-            "plain_ms": ssd_rows[SSM_ARCH]["plain_ms"],
-            "bound_ms": ssd_rows[SSM_ARCH]["bound_ms"],
-            "bound_by": ssd_rows[SSM_ARCH]["bound_by"],
-            "library_ms": None,
-        },
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"] if library else None,
+        }
+
+    timing_rows = {f"{b}_{a}": r for (b, a), r in rows.items()}
+    print(json.dumps({"kernels": [
+        kernel_row("timing_scan", timing_rows, "greedy_False", launches, library=False),
+        kernel_row("flash_attention", attention, "main_path",
+                   serve["flash_attention_launches"]),
+        kernel_row("ssd_scan", ssd_rows, SSM_ARCH, serve_ssm["ssd_scan_launches"]),
+        kernel_row("rmsnorm", norm_rows, "gemma_prefill", serve_gemma["rmsnorm_launches"]),
+        kernel_row("fused_reduce", reduce_rows, "bench_2^20", bench_launches["fused_reduce"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -550,12 +545,40 @@ def serve_prompts(np, vocab):
     ]
 
 
-def serve_run(np, torch, cfg, counters, expect):
+def prefill_launches(cfg):
+    """Kernel launches of one prefill of ``cfg``, from the model code
+    (`repro_torch.models.lm`): ``flash_attention`` once per attention layer
+    (each decoder layer; each call of the hybrid's shared block),
+    ``ssd_scan`` once per Mamba2 layer, and ``rmsnorm`` once per norm: two
+    per attention layer (before attention and before the FFN), two more
+    with qk-norm, two per Mamba2 layer (the layer's norm and the gated
+    norm), and the final norm."""
+    check(cfg.attention_impl == "pallas" or cfg.family == "ssm",
+          f"{cfg.name}: attention is not routed to the kernel")
+    attn = {"dense": cfg.n_layers, "ssm": 0,
+            "hybrid": cfg.n_layers // max(cfg.hybrid_period, 1)}[cfg.family]
+    mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    norms = (4 if cfg.qk_norm else 2) * attn + 2 * mamba + 1
+    return {"flash_attention": attn, "ssd_scan": mamba, "rmsnorm": norms}
+
+
+def generate_launches(cfg):
+    """Kernel launches of one ``generate`` of the serving requests: a
+    prefill, then SERVE_NEW_TOKENS decode steps, each of which launches
+    ``rmsnorm`` as often as a prefill and no other kernel (the decode
+    attention and the Mamba2 recurrence are plain torch, as in the
+    reference)."""
+    out = prefill_launches(cfg)
+    out["rmsnorm"] *= 1 + SERVE_NEW_TOKENS
+    return out
+
+
+def serve_run(np, torch, cfg, counters):
     """Serve the requests through ``cfg`` on the card, random weights from
     seed 0: prefill cold and warm, one ``generate`` with every kernel count
-    set to 0 just before it and read just after (``expect``: name ->
-    launches; every other kernel must not launch), decode steps.  Returns
-    the phase's fields and the padded prompt batch."""
+    set to 0 just before it and read just after (each exactly
+    ``generate_launches(cfg)``; every other kernel must not launch), decode
+    steps.  Returns the phase's fields and the padded prompt batch."""
     from repro_torch.models.lm import build_model
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -576,6 +599,7 @@ def serve_run(np, torch, cfg, counters, expect):
         fn.launches = 0
     completions, generate_ms = wall_ms(lambda: engine.generate(requests))
     launches = {name: fn.launches for name, fn in counters.items()}
+    expect = generate_launches(cfg)
     for name, n in launches.items():
         want = expect.get(name, 0)
         check(n == want, f"{cfg.name}: generate() launched {name} {n} times, want {want}")
@@ -625,7 +649,7 @@ def serve_run(np, torch, cfg, counters, expect):
     return fields, batch
 
 
-def serve_phases(np, torch, fa, counters):
+def serve_phases(np, torch, counters):
     """Phases 5-8: serving, the attention kernel, serving checks.
 
     Returns the ``serve`` phase's fields and the ``attention_vs_plain``
@@ -633,14 +657,16 @@ def serve_phases(np, torch, fa, counters):
     """
     import torch.nn.functional as F
 
+    from repro_torch.benchmarks import roofline
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     cfg = get_config(SERVE_ARCH).replace(attention_impl="pallas")
 
     # -- 5. serve ---------------------------------------------------------
-    serve, batch = serve_run(np, torch, cfg, counters, {"flash_attention": cfg.n_layers})
+    serve, batch = serve_run(np, torch, cfg, counters)
     emit("serve", **serve)
 
     # -- 6. attention kernel against its plain version ------------------------
@@ -660,7 +686,8 @@ def serve_phases(np, torch, fa, counters):
         err = float((got.float() - want.float()).abs().max())
         tol = attention_tolerance(dtype, want)
         check(err <= tol, f"attention {name}: max abs error {err} > {tol}")
-        bound_ms, bound_by, flops = attention_bound(q, k, causal, window)
+        bound_ms, bound_by = roofline.attention_bound(q, k, causal, window)
+        flops = roofline.attention_flops(bhq, sq, skv, d, causal, window)
         row = dict(
             case=name, q=[bhq, sq, d], kv=[bhkv, skv, d], dtype=dtype,
             causal=causal, window=window, max_abs_err=err, tolerance=tol,
@@ -668,7 +695,7 @@ def serve_phases(np, torch, fa, counters):
             plain_ms=median_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, **kw), 3),
             bound_ms=bound_ms, bound_by=bound_by, flops=flops, library_ms=None,
         )
-        if name in ("main_path", "zamba2_shared"):
+        if name in ("main_path", "zamba2_shared", "gemma_2b"):
             # Library yardstick on the serving shapes, timed only: the
             # (BH, S, D) tensors as one batch row of BH heads; the library's
             # GQA maps query head i to KV head i // group, as the fold does.
@@ -681,8 +708,8 @@ def serve_phases(np, torch, fa, counters):
         emit("attention_vs_plain", **row)
 
     # -- 7, 8. kernel vs plain attention and card vs CPU, depth 2 -------------
-    shallow_checks(np, torch, "serve", cfg.replace(n_layers=2), batch, fa,
-                   "flash_attention_bhsd", relative=False, prompt_len=64)
+    shallow_checks(np, torch, "serve", cfg.replace(n_layers=2), batch,
+                   relative=False, prompt_len=64, runs=CARD_VS_CPU_RUNS)
     return serve, attention
 
 
@@ -728,37 +755,67 @@ def logits_close(got, want, what, relative):
                 decided_first_tokens=int(decided.sum()), equal_first_tokens=int(same.sum()))
 
 
-def shallow_checks(np, torch, phase, cfg, batch, module, kernel, *, relative, prompt_len):
-    """The serving checks of a full-width model cut in depth (``cfg``),
-    whose prefill launches ``module.<kernel>`` once per layer, with the
-    logits held by ``logits_close(relative=...)``:
+def kernel_routes():
+    """Per kernel of the serving paths: (module, name) of the dispatcher
+    that carries its launch count and that a kernel-vs-plain check replaces
+    by ``<name>_plain``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
 
-    * ``<phase>_kernel_vs_plain``: ``batch``'s prefill with the kernel and
-      with its plain version (``<kernel>_plain``) forced, same weights;
-    * ``<phase>_card_vs_cpu``: the same weights on the CPU and on the card, two
-      ``prompt_len``-token prompts, prefill and 3 decode steps.
+    return {
+        "flash_attention": (fa, "flash_attention_bhsd"),
+        "ssd_scan": (ssd, "ssd_scan_bhsp"),
+        "rmsnorm": (rn, "rmsnorm_2d"),
+    }
+
+
+def launched(counters, fn):
+    """``fn()`` and the launches of each counter's kernel during it."""
+    before = {name: c.launches for name, c in counters.items()}
+    out = fn()
+    return out, {name: c.launches - before[name] for name, c in counters.items()}
+
+
+def shallow_checks(np, torch, phase, cfg, batch, *, relative, prompt_len, runs=1):
+    """The serving checks of a full-width model cut in depth (``cfg``),
+    with the logits held by ``logits_close(relative=...)``:
+
+    * ``<phase>_kernel_vs_plain``, one per kernel the prefill launches:
+      ``batch``'s prefill with every kernel, and with that one kernel's
+      plain version forced (the others launching as before), same weights;
+    * ``<phase>_card_vs_cpu``, ``runs`` times with the same weights and
+      prompts: the CPU and the card, two ``prompt_len``-token prompts,
+      prefill and 3 decode steps, each run's logits also compared bitwise
+      with the first run's on each side.
     """
     from repro_torch.models.common import tree_map
     from repro_torch.models.lm import build_model
     from repro_torch.serve.engine import ServeEngine
 
     dev = torch.device("cuda")
-    counter = getattr(module, kernel)
+    routes = kernel_routes()
+    # The dispatchers, read before any is replaced by its plain version.
+    counters = {name: getattr(*route) for name, route in routes.items()}
+    expect = {name: prefill_launches(cfg)[name] for name in routes}
     fields = dict(arch=cfg.name, n_layers=cfg.n_layers, hybrid_period=cfg.hybrid_period)
 
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     with torch.inference_mode():
-        before = counter.launches
-        kernel_logits, _ = model.prefill(params, batch)
-        check(counter.launches == before + cfg.n_layers,
-              f"{cfg.name}: depth-{cfg.n_layers} prefill skipped the kernel")
-        with mock.patch.object(module, kernel, getattr(module, f"{kernel}_plain")):
-            plain_logits, _ = model.prefill(params, batch)
-        check(counter.launches == before + cfg.n_layers,
-              f"{cfg.name}: the plain prefill launched the kernel")
-    emit(f"{phase}_kernel_vs_plain", **fields, **logits_close(
-        kernel_logits, plain_logits, f"{cfg.name} kernel vs plain", relative))
+        (kernel_logits, _), n = launched(counters, lambda: model.prefill(params, batch))
+        check(n == expect, f"{cfg.name}: depth-{cfg.n_layers} prefill launched {n}, want {expect}")
+        for name, (module, attr) in routes.items():
+            if not expect[name]:
+                continue
+            with mock.patch.object(module, attr, getattr(module, f"{attr}_plain")):
+                (plain_logits, _), n = launched(counters, lambda: model.prefill(params, batch))
+            want = {**expect, name: 0}
+            check(n == want, f"{cfg.name}: prefill with plain {name} launched {n}, want {want}")
+            emit(f"{phase}_kernel_vs_plain", **fields, forced_plain=[name],
+                 prefill_launches=n, **logits_close(
+                     kernel_logits, plain_logits,
+                     f"{cfg.name} kernel vs plain {name}", relative))
     del model, params, kernel_logits, plain_logits
     torch.cuda.empty_cache()
 
@@ -766,45 +823,56 @@ def shallow_checks(np, torch, phase, cfg, batch, module, kernel, *, relative, pr
     cpu_model = build_model(cfg, device="cpu")
     cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
     card_model = build_model(cfg, device=dev)
-    card_params = tree_map(lambda t: t.to(dev), cpu_params)
     prompts_cpu = torch.from_numpy(
         np.random.default_rng(1).integers(2, cfg.vocab_size, (2, prompt_len)).astype(np.int32)
     )
     max_len = prompt_len + steps_n + 1
-    with torch.inference_mode():
-        cpu_logits, cpu_cache = cpu_model.prefill(cpu_params, {"tokens": prompts_cpu})
-        before = counter.launches
-        card_logits, card_cache = card_model.prefill(card_params, {"tokens": prompts_cpu.to(dev)})
-        check(counter.launches == before + cfg.n_layers,
-              f"{cfg.name}: the card's prefill skipped the kernel")
-        steps = [(cpu_logits, card_logits)]
-        cpu_cache = ServeEngine(cpu_model, cpu_params, max_len=max_len)._grow(cpu_cache, 2)
-        card_cache = ServeEngine(card_model, card_params, max_len=max_len)._grow(card_cache, 2)
-        for _ in range(steps_n):
-            tok = torch.argmax(steps[-1][0], dim=-1)[:, None].to(torch.int32)
-            cpu_logits, cpu_cache = cpu_model.decode_step(cpu_params, cpu_cache, tok)
-            card_logits, card_cache = card_model.decode_step(card_params, card_cache, tok.to(dev))
-            steps.append((cpu_logits, card_logits))
-    close = [
-        logits_close(got, want, f"{cfg.name} card vs CPU, step {i}", relative)
-        for i, (want, got) in enumerate(steps)
-    ]
-    emit(f"{phase}_card_vs_cpu", **fields, prompts=[2, prompt_len], decode_steps=steps_n,
-         max_abs_err=[c["max_abs_err"] for c in close],
-         tolerance=[c["tolerance"] for c in close],
-         max_abs_logit=float(steps[0][0].float().abs().max()))
-    del cpu_model, cpu_params, card_model, card_params, cpu_cache, card_cache
+    first = None
+    for run in range(runs):
+        card_params = tree_map(lambda t: t.to(dev), cpu_params)
+        with torch.inference_mode():
+            cpu_logits, cpu_cache = cpu_model.prefill(cpu_params, {"tokens": prompts_cpu})
+            (card_logits, card_cache), n = launched(
+                counters, lambda: card_model.prefill(card_params, {"tokens": prompts_cpu.to(dev)}))
+            check(n == expect, f"{cfg.name}: the card's prefill launched {n}, want {expect}")
+            steps = [(cpu_logits, card_logits)]
+            cpu_cache = ServeEngine(cpu_model, cpu_params, max_len=max_len)._grow(cpu_cache, 2)
+            card_cache = ServeEngine(card_model, card_params, max_len=max_len)._grow(card_cache, 2)
+            for _ in range(steps_n):
+                tok = torch.argmax(steps[-1][0], dim=-1)[:, None].to(torch.int32)
+                cpu_logits, cpu_cache = cpu_model.decode_step(cpu_params, cpu_cache, tok)
+                card_logits, card_cache = card_model.decode_step(card_params, card_cache, tok.to(dev))
+                steps.append((cpu_logits, card_logits))
+        steps = [(want, got.cpu()) for want, got in steps]
+        first = first or steps
+        close = [
+            logits_close(got, want, f"{cfg.name} card vs CPU, run {run}, step {i}", relative)
+            for i, (want, got) in enumerate(steps)
+        ]
+        emit(f"{phase}_card_vs_cpu", **fields, run=run, prompts=[2, prompt_len],
+             decode_steps=steps_n,
+             max_abs_err=[c["max_abs_err"] for c in close],
+             tolerance=[c["tolerance"] for c in close],
+             max_abs_logit=float(steps[0][0].float().abs().max()),
+             cpu_equal_to_run_0=all(torch.equal(a[0], b[0]) for a, b in zip(steps, first)),
+             card_equal_to_run_0=all(torch.equal(a[1], b[1]) for a, b in zip(steps, first)),
+             cpu_capability=torch.backends.cpu.get_cpu_capability(),
+             cpu_threads=torch.get_num_threads())
+        del card_params, card_cache, cpu_cache
+    del cpu_model, cpu_params, card_model
     torch.cuda.empty_cache()
 
 
-def ssm_phases(np, torch, fa, ssd, counters):
+def ssm_phases(np, torch, counters):
     """Phases 9-13: the SSD kernel, serving the ssm and hybrid families,
     serving checks.
 
     Returns the ``ssd_vs_plain`` rows by case name and the two serving
     phases' fields.
     """
+    from repro_torch.benchmarks import roofline
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ssd_scan as ssd
 
     dev = torch.device("cuda")
     s_main = len(max(serve_prompts(np, 2 ** 15), key=len))
@@ -829,7 +897,8 @@ def ssm_phases(np, torch, fa, ssd, counters):
         xdt, logd = ssd.head_major(x, dt, a_log)
         h_init = None if init is None else init.reshape(batch * heads, p, n)
         kw = dict(n_heads=heads, chunk=chunk, init_state=h_init)
-        bound_ms, bound_by, flops = ssd_bound(batch, heads, s, p, n, chunk, with_init)
+        bound_ms, bound_by = roofline.ssd_bound(batch, heads, s, p, n, chunk, with_init)
+        flops = roofline.ssd_flops(batch, heads, s, p, n, chunk)
         row = dict(
             case=name, batch=batch, heads=heads, s=s, p=p, n=n, chunk=chunk,
             init_state=with_init, x_dtype=dtype,
@@ -847,15 +916,9 @@ def ssm_phases(np, torch, fa, ssd, counters):
     # -- 10, 11. serve mamba2-130m and zamba2-1.2b at full width and depth -----
     ssm_cfg = get_config(SSM_ARCH)
     hybrid_cfg = get_config(HYBRID_ARCH).replace(attention_impl="pallas")
-    serve_ssm, ssm_batch = serve_run(
-        np, torch, ssm_cfg, counters, {"ssd_scan": ssm_cfg.n_layers}
-    )
+    serve_ssm, ssm_batch = serve_run(np, torch, ssm_cfg, counters)
     emit("serve_ssm", **serve_ssm)
-    n_groups = hybrid_cfg.n_layers // hybrid_cfg.hybrid_period
-    serve_hybrid, hybrid_batch = serve_run(
-        np, torch, hybrid_cfg, counters,
-        {"ssd_scan": hybrid_cfg.n_layers, "flash_attention": n_groups},
-    )
+    serve_hybrid, hybrid_batch = serve_run(np, torch, hybrid_cfg, counters)
     emit("serve_hybrid", **serve_hybrid)
 
     # -- 12, 13. kernel vs plain scan and card vs CPU, depth cut --------------
@@ -864,9 +927,155 @@ def ssm_phases(np, torch, fa, ssd, counters):
         HYBRID_ARCH: (hybrid_cfg.replace(n_layers=3, hybrid_period=2), hybrid_batch),
     }
     for cfg, batch in shallow.values():
-        shallow_checks(np, torch, "serve_ssm", cfg, batch, ssd, "ssd_scan_bhsp",
-                       relative=True, prompt_len=300)
+        shallow_checks(np, torch, "serve_ssm", cfg, batch, relative=True, prompt_len=300)
     return rows, serve_ssm, serve_hybrid
+
+
+def norm_tolerance(dtype, want):
+    """One bf16 ulp of the output's magnitude in bf16; 1e-5 of it in
+    float32."""
+    scale = float(want.float().abs().max())
+    if dtype == "float32":
+        return 1e-5 * scale
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def norm_phases(np, torch, counters):
+    """Phases 14-16: the RMSNorm kernel, serving gemma-2b, its serving
+    checks.
+
+    Returns the ``rmsnorm_vs_plain`` rows by case name and the
+    ``serve_gemma`` phase's fields.
+    """
+    import torch.nn.functional as F
+
+    from repro_torch.benchmarks import roofline
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev = torch.device("cuda")
+    tokens = SERVE_REQUESTS * len(max(serve_prompts(np, 2 ** 15), key=len))
+
+    # -- 14. the RMSNorm kernel against its plain version ---------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    for name, t, d, x_dtype, w_dtype, offset, gated in RMSNORM_CASES:
+        t = t or tokens
+        x = 3 * torch.randn((t, d), generator=gen, device=dev)
+        if gated:
+            x = x * F.silu(torch.randn((t, d), generator=gen, device=dev))
+        x = x.to(getattr(torch, x_dtype))
+        w = torch.randn((d,), generator=gen, device=dev).to(getattr(torch, w_dtype))
+        kw = dict(offset=offset)
+        got = rn.rmsnorm_2d_cuda(x, w, **kw)
+        want = rn.rmsnorm_2d_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        check(got.dtype == x.dtype and bool(torch.isfinite(got.float()).all()),
+              f"rmsnorm {name}: not finite or wrong dtype")
+        err = float((got.float() - want.float()).abs().max())
+        tol = norm_tolerance(x_dtype, want)
+        check(err <= tol, f"rmsnorm {name}: max abs error {err} > {tol}")
+        # Library yardstick, timed only: the (1 + w) of the offset form is
+        # folded into the weight before the call.
+        w_lib = 1.0 + w.float() if offset else w
+        lib = lambda: F.rms_norm(x, (d,), w_lib, 1e-6)  # noqa: E731
+        bound_ms, bound_by = roofline.rmsnorm_bound(x, w)
+        row = dict(
+            case=name, x=[t, d], x_dtype=x_dtype, w_dtype=w_dtype, offset=offset,
+            max_abs_err=err, tolerance=tol,
+            ms=median_ms(lambda: rn.rmsnorm_2d_cuda(x, w, **kw), 20),
+            plain_ms=median_ms(lambda: rn.rmsnorm_2d_plain(x, w, **kw), 5),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=median_ms(lib, 20),
+            library_max_abs_err=float((lib().float() - want.float()).abs().max()),
+        )
+        rows[name] = row
+        emit("rmsnorm_vs_plain", **row)
+    del x, w, got, want
+    torch.cuda.empty_cache()
+
+    # -- 15. serve gemma-2b at full width and depth ----------------------------
+    cfg = get_config(GEMMA_ARCH).replace(attention_impl="pallas")
+    serve, batch = serve_run(np, torch, cfg, counters)
+    emit("serve_gemma", **serve)
+
+    # -- 16. kernel vs plain and card vs CPU, depth 2 ---------------------------
+    shallow_checks(np, torch, "serve_gemma", cfg.replace(n_layers=2), batch,
+                   relative=True, prompt_len=64)
+    return rows, serve
+
+
+def reduce_phase(torch):
+    """Phase 17: the fused-reduce kernel bitwise against its plain version,
+    with warm median times, ``torch.add`` where it computes the same
+    function (one dtype in and out), and the bound.  Returns the rows by
+    case name."""
+    from repro_torch.benchmarks import roofline
+    from repro_torch.kernels import fused_reduce as fr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    for name, shape, in_dtype, out_dtype in REDUCE_CASES:
+        a, b = (
+            torch.randn(shape, generator=gen, device=dev).to(getattr(torch, in_dtype))
+            for _ in range(2)
+        )
+        out = getattr(torch, out_dtype)
+        got = fr.fused_reduce_flat_cuda(a, b, out_dtype=out)
+        want = fr.fused_reduce_flat_plain(a, b, out_dtype=out)
+        torch.cuda.synchronize()
+        check(got.dtype == out and tuple(got.shape) == shape, f"reduce {name}: dtype or shape")
+        check(torch.equal(got, want), f"reduce {name}: kernel != plain")
+        bound_ms, bound_by = roofline.reduce_bound(a, out)
+        row = dict(
+            case=name, shape=list(shape), in_dtype=in_dtype, out_dtype=out_dtype,
+            bitwise_equal=True, max_abs_err=0.0,
+            ms=median_ms(lambda: fr.fused_reduce_flat_cuda(a, b, out_dtype=out), 20),
+            plain_ms=median_ms(lambda: fr.fused_reduce_flat_plain(a, b, out_dtype=out), 5),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        )
+        if in_dtype == out_dtype:
+            row["library_equal"] = torch.equal(torch.add(a, b), want)
+            if row["library_equal"]:
+                row["library_ms"] = median_ms(lambda: torch.add(a, b), 20)
+        if name in ("f32_8M", "bf16_193M"):
+            # The same sum on views one element off 16-byte alignment: the
+            # scalar loop, timed beside the aligned buffers' vector loop.
+            a1, b1 = a[1:], b[1:]
+            check(torch.equal(fr.fused_reduce_flat_cuda(a1, b1, out_dtype=out), want[1:]),
+                  f"reduce {name} misaligned: kernel != plain")
+            row["misaligned_ms"] = median_ms(
+                lambda: fr.fused_reduce_flat_cuda(a1, b1, out_dtype=out), 20)
+        rows[name] = row
+        emit("reduce_vs_plain", **row)
+        del a, b, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bench_phase(torch, counters):
+    """Phase 18: ``repro_torch.benchmarks.kernel_bench`` on the card -- the
+    reference's one path to ``fused_reduce`` -- with every kernel count set
+    to 0 just before it and read just after.  Every row must be finite and
+    within its error limit, and every kernel must have launched.  Returns
+    the launch counts."""
+    from repro_torch.benchmarks import kernel_bench
+
+    for fn in counters.values():
+        fn.launches = 0
+    rows = kernel_bench.run(device="cuda")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(len(rows) == 6, f"kernel bench gave {len(rows)} rows, want 6")
+    for row in rows:
+        check(math.isfinite(row.us) and row.us > 0, f"{row.name}: time {row.us}")
+        check(row.err is not None and row.err <= row.tol,
+              f"{row.name}: error {row.err} > {row.tol}")
+        emit("kernel_bench", name=row.name, us=row.us, note=row.note,
+             err=row.err, tolerance=row.tol)
+    check(all(n > 0 for n in launches.values()), f"kernel bench launches {launches}")
+    emit("kernel_bench_launches", **launches)
+    return launches
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -20,6 +20,8 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import rmsnorm as rmsnorm_lib
+
 Pytree = Any
 
 
@@ -123,14 +125,13 @@ def rms_norm(
     eps: float = 1e-6,
     offset: bool = False,
 ) -> torch.Tensor:
-    """RMSNorm in fp32; ``offset=True`` uses the Gemma (1 + w) convention."""
-    dtype = x.dtype
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    normed = x32 * torch.rsqrt(var + eps)
-    w = weight.float()
-    out = normed * (1.0 + w) if offset else normed * w
-    return out.to(dtype)
+    """RMSNorm in fp32; ``offset=True`` uses the Gemma (1 + w) convention.
+
+    Through `repro_torch.kernels.rmsnorm`: the hand-written CUDA kernel on
+    CUDA tensors, its plain torch version (the reference's order of
+    operations) on CPU tensors.
+    """
+    return rmsnorm_lib.rmsnorm(x, weight, eps=eps, offset=offset)
 
 
 def layer_norm(

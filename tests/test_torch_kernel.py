@@ -22,6 +22,16 @@ card is present and skips without one.
   ``chip_smoke.py``'s ``ssd_vs_plain`` phase; the model-layout wrapper
   and the model's ``ssd_chunked`` launch the kernel and never run the
   plain version on a card.
+* ``rmsnorm_2d``: within one ulp of the output magnitude of the plain
+  version in bf16 and float16 and within 1e-5 of it in float32 (only the
+  order of the sum of squares differs), on the serving shapes of
+  qwen2-1.5B, mamba2-130m, zamba2-1.2b and gemma-2b, a decode shape, a
+  bf16 weight, D off the vector width and a misaligned view; the models'
+  ``rms_norm`` launches it and never runs the plain version on a card;
+  unsupported dtypes and widths raise.
+* ``fused_reduce_flat``: bitwise equal to the plain version
+  (``torch.equal``) for every dtype pair on aligned, odd and misaligned
+  buffers; a dtype it does not take raises.
 """
 
 import math
@@ -47,8 +57,10 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bhsd,
     flash_attention_bhsd_plain,
 )
+from repro_torch.kernels import fused_reduce as fr
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as ssd_lib
-from repro_torch.models import ssm
+from repro_torch.models import common, ssm
 from repro_torch.kernels.timing_scan import (
     timing_scan,
     timing_scan_cuda,
@@ -309,3 +321,147 @@ def test_ssd_kernel_refuses_what_it_does_not_take():
     x, dt, a_log, b, c, _ = ssd_inputs(gen, 1, 2, 300, 8, 16, False, "float32", "cuda")
     with pytest.raises(ValueError, match="chunk"):
         ssd_lib.ssd_scan(x, dt, a_log, b, c, chunk=256)
+
+
+# (name, T, D, x dtype, w dtype, offset): the serving paths' prefill norms
+# (8 requests of 1895 tokens: qwen2-1.5B's layer norm and mamba2-130m's
+# gated norm at 1536, zamba2-1.2b's gated norm at 4096, gemma-2b's (1 + w)
+# norm at 2048), a decode step, float32 and float16 x, a bf16 weight, D off
+# the vector width, T = 7 and the widest row.
+RMSNORM_CASES = [
+    ("qwen2_prefill", 15160, 1536, "bfloat16", "float32", False),
+    ("zamba2_gated", 15160, 4096, "bfloat16", "float32", False),
+    ("gemma_prefill", 15160, 2048, "bfloat16", "float32", True),
+    ("decode", 8, 2048, "bfloat16", "float32", True),
+    ("float32", 4096, 1536, "float32", "float32", False),
+    ("float16", 1000, 1024, "float16", "float32", False),
+    ("bf16_weight", 4096, 2048, "bfloat16", "bfloat16", True),
+    ("d48", 1024, 48, "bfloat16", "float32", False),
+    ("d1234", 300, 1234, "bfloat16", "float32", True),
+    ("t7", 7, 2048, "float32", "float32", True),
+    ("d16384", 64, 16384, "float32", "bfloat16", False),
+]
+
+
+def rmsnorm_tolerance(dtype: str, want: torch.Tensor) -> float:
+    """One ulp of the output's magnitude (bf16, float16), 1e-5 of it in
+    float32."""
+    scale = float(want.float().abs().max())
+    if dtype == "float32":
+        return 1e-5 * scale
+    mantissa = 7 if dtype == "bfloat16" else 10
+    return 2.0 ** (math.floor(math.log2(scale)) - mantissa)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RMSNORM_CASES, ids=[c[0] for c in RMSNORM_CASES])
+def test_rmsnorm_kernel_matches_plain(case):
+    _require_card()
+    name, t, d, x_dtype, w_dtype, offset = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (3 * torch.randn((t, d), generator=gen, device="cuda")).to(getattr(torch, x_dtype))
+    w = torch.randn((d,), generator=gen, device="cuda").to(getattr(torch, w_dtype))
+    before = rn.rmsnorm_2d.launches
+    got = rn.rmsnorm_2d(x, w, offset=offset)
+    assert rn.rmsnorm_2d.launches == before + 1
+    want = rn.rmsnorm_2d_plain(x, w, offset=offset)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rmsnorm_tolerance(x_dtype, want), (name, err)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_on_a_misaligned_view():
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flat = torch.randn((1 + 33 * 100,), generator=gen, device="cuda").bfloat16()
+    x = flat[1:].view(33, 100)  # base 2 bytes past a 16-byte boundary
+    w = torch.randn((100,), generator=gen, device="cuda")
+    got = rn.rmsnorm_2d(x, w)
+    want = rn.rmsnorm_2d_plain(x, w)
+    assert float((got.float() - want.float()).abs().max()) <= rmsnorm_tolerance("bfloat16", want)
+
+
+@pytest.mark.cuda
+def test_model_rms_norm_on_the_card_launches_the_kernel(monkeypatch):
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((2, 5, 3, 64), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((64,), generator=gen, device="cuda")
+    want = common.rms_norm(x.cpu(), w.cpu(), eps=1e-5, offset=True)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain RMSNorm ran on a card")
+
+    monkeypatch.setattr(rn, "rmsnorm_2d_plain", refuse)
+    before = rn.rmsnorm_2d.launches
+    got = common.rms_norm(x, w, eps=1e-5, offset=True)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm_2d.launches == before + 1
+    assert got.shape == x.shape
+    err = float((got.cpu().float() - want.float()).abs().max())
+    assert err <= rmsnorm_tolerance("bfloat16", want)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_refuses_what_it_does_not_take():
+    _require_card()
+    x = torch.zeros((4, 64), device="cuda")
+    w = torch.ones((64,), device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        rn.rmsnorm_2d(x.double(), w)
+    with pytest.raises(ValueError, match="dtype"):
+        rn.rmsnorm_2d(x, w.half())
+    with pytest.raises(ValueError, match="entries"):
+        rn.rmsnorm_2d(x, w[:63])
+    with pytest.raises(ValueError, match="row width"):
+        rn.rmsnorm_2d(torch.zeros((2, rn.MAX_D + 1), device="cuda"),
+                      torch.ones((rn.MAX_D + 1,), device="cuda"))
+
+
+# (shape, in dtype, out dtype): the bench's 2^20 bf16, 8 M float32, a bf16
+# sum kept in float32, float16, and odd sizes.
+REDUCE_CASES = [
+    ((1 << 20,), "bfloat16", "bfloat16"),
+    ((8388608,), "float32", "float32"),
+    ((8388608,), "bfloat16", "float32"),
+    ((1000, 999), "float16", "float16"),
+    ((3, 5, 7), "float32", "bfloat16"),
+    ((17,), "bfloat16", "float16"),
+    ((100000,), "float16", "float32"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,in_dtype,out_dtype", REDUCE_CASES)
+def test_fused_reduce_kernel_matches_plain_bitwise(shape, in_dtype, out_dtype):
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a, b = (
+        (50 * torch.randn(shape, generator=gen, device="cuda")).to(getattr(torch, in_dtype))
+        for _ in range(2)
+    )
+    out_dtype = getattr(torch, out_dtype)
+    before = fr.fused_reduce_flat.launches
+    got = fr.fused_reduce_flat(a, b, out_dtype=out_dtype)
+    assert fr.fused_reduce_flat.launches == before + 1
+    want = fr.fused_reduce_flat_plain(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.equal(got, want)
+    # Misaligned views take the scalar loop.
+    flat_a, flat_b = a.reshape(-1), b.reshape(-1)
+    got = fr.fused_reduce_flat(flat_a[1:], flat_b[1:], out_dtype=out_dtype)
+    assert torch.equal(got, fr.fused_reduce_flat_plain(flat_a[1:], flat_b[1:], out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+def test_fused_reduce_kernel_refuses_what_it_does_not_take():
+    _require_card()
+    a = torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        fr.fused_reduce_flat(a, a.bfloat16())
+    with pytest.raises(ValueError, match="dtype"):
+        fr.fused_reduce_flat(a.double(), a.double())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fr.fused_reduce_flat(a, a[:4])

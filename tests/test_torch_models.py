@@ -3,7 +3,8 @@
 Both models get the same weights: the reference's ``init_params`` draws
 them and ``repro_torch.models.convert.params_from_jax`` hands them to the
 port.  On 2-layer smoke configs of ``qwen2_1_5b`` (GQA, QKV bias, tied
-embeddings) and of ``h2o_danube3_4b`` (sliding window 16, untied head),
+embeddings), of ``h2o_danube3_4b`` (sliding window 16, untied head) and of
+``gemma_2b`` (MQA, GeGLU, embeddings scaled by sqrt(d), (1 + w) RMSNorm),
 with ``attention_impl`` ``xla`` and ``pallas`` (the reference's Pallas
 kernel in interpret mode, the port's plain flash attention), prefill
 logits and KV cache agree, then 4 teacher-forced ``decode_step``s agree at
@@ -46,7 +47,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.lm import build_model
 
 CTX = single_device_context()
-ARCHS = ("qwen2_1_5b", "h2o_danube3_4b")
+ARCHS = ("qwen2_1_5b", "h2o_danube3_4b", "gemma_2b")
 BATCH, PROMPT, N_DECODE = 2, 40, 4
 TOL = 0.05
 

@@ -9,7 +9,7 @@ the port's tokens must equal the reference's wherever the reference's
 top-2 logit margin at that step exceeds 0.1 (below that, bf16 rounding may
 flip the argmax; a request is followed only up to its first such flip).
 
-The decoder (qwen2-1.5B smoke config) and the ssm and hybrid families
+The decoder (qwen2-1.5B and gemma-2b smoke configs) and the ssm and hybrid families
 (mamba2-130m and zamba2-1.2b smoke configs, the hybrid with ``xla`` and
 ``pallas`` attention) are served; the launcher serves each family on the
 CPU, and the ssm family reaches no attention code.
@@ -71,6 +71,13 @@ def _teacher_forced_logits(prefill, decode, tokens, n_steps, grow):
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_generate_matches_reference_engine(impl):
     _check_generate("qwen2_1_5b", impl)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_gemma_generate_matches_reference_engine(impl):
+    """gemma-2b's smoke config: MQA, GeGLU, sqrt(d) embedding scale and the
+    (1 + w) RMSNorm, whose weights start at 0."""
+    _check_generate("gemma_2b", impl)
 
 
 # The ssm (Mamba2) and hybrid (Zamba2, shared attention block) families.

@@ -6,10 +6,11 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 tools/profile_serve.py [--arch ID] [--layers N] [--steps N]
 
 It builds one of ``chip_smoke.py``'s serving configurations -- full-width
-qwen2-1.5B (the default), mamba2-130m or zamba2-1.2b (``--arch``), at full
-depth unless ``--layers``, random weights from seed 0, attention through
-the ``flash_attention`` kernel and the Mamba2 scan through the
-``ssd_scan`` kernel, 8 requests of 1024-2048 prompt tokens from
+qwen2-1.5B (the default), mamba2-130m, zamba2-1.2b or gemma-2b
+(``--arch``), at full depth unless ``--layers``, random weights from seed
+0, attention through the ``flash_attention`` kernel, the Mamba2 scan
+through the ``ssd_scan`` kernel and every RMSNorm through the ``rmsnorm``
+kernel, 8 requests of 1024-2048 prompt tokens from
 ``numpy.random.default_rng(0)`` -- warms it up, then
 profiles one prefill and ``--steps`` decode steps with ``torch.profiler``
 (CPU and CUDA activities), each window on its own.  For each window it

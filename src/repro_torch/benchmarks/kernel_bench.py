@@ -208,7 +208,7 @@ def run(device: "str | torch.device | None" = None) -> list[Row]:
     dt = F.softplus(draw(bsz, s, h))
     a_log = 0.5 * draw(h)
     bb, cc = draw(bsz, s, n), draw(bsz, s, n)
-    y, _ = ops.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk)
+    y = ops.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk)
     xdt, logd = ssd.head_major(x, dt, a_log)
     kw = dict(n_heads=h, chunk=chunk)
     plain = lambda: ssd.ssd_scan_bhsp_plain(xdt, logd, bb, cc, **kw)  # noqa: E731

@@ -88,10 +88,14 @@ def rmsnorm_bound(x: torch.Tensor, w: torch.Tensor) -> tuple[float, str]:
     return bound(2 * _nbytes(x) + _nbytes(w), 4 * x.numel(), torch.float32)
 
 
-def reduce_bound(a: torch.Tensor, out_dtype: torch.dtype) -> tuple[float, str]:
-    """a and b read, out written once; one float32 add an element."""
+def reduce_bound(
+    a: torch.Tensor, out_dtype: torch.dtype, b: torch.Tensor | None = None
+) -> tuple[float, str]:
+    """a and b (of a's dtype unless given) read, out written once; one
+    float32 add an element."""
     out_bytes = a.numel() * torch.empty((), dtype=out_dtype).element_size()
-    return bound(2 * _nbytes(a) + out_bytes, a.numel(), torch.float32)
+    in_bytes = _nbytes(a) + _nbytes(a if b is None else b)
+    return bound(in_bytes + out_bytes, a.numel(), torch.float32)
 
 
 def timing_scan_bound(

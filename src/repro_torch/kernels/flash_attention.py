@@ -11,7 +11,13 @@ an online softmax over KV blocks with float32 m, l and acc; the output
 * ``flash_attention_bhsd_cuda`` launches ``csrc/flash_attention.cu``
   (built at first use, `repro_torch.kernels._build`), the port of the
   reference's Pallas kernel ``src/repro/kernels/flash_attention.py``
-  (``_kernel``).  It takes CUDA tensors only.
+  (``_kernel``).  It takes CUDA tensors only.  bfloat16 and float16 run
+  on the tensor cores (``wgmma`` on tiles that TMA loads, P.V at float32
+  accuracy), float32 on the CUDA cores; the kernel's C entry point
+  dispatches on the dtype.  The tensor-core path steps the head dim by
+  16, so a 16-bit D that is not a multiple of 16 is zero-padded to one
+  (``pad_head_dim``, one copy of q, k and v) and the output sliced back;
+  the scale stays ``1/sqrt(D)`` of the true D.
 * ``flash_attention_bhsd_plain`` is the same blocked online softmax in
   plain torch, vectorized over heads and query rows, one KV block per loop
   turn, with the same sentinel and float32 math.  It is the kernel's
@@ -32,6 +38,7 @@ there depends on its block padding.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -42,7 +49,9 @@ KV_BLOCK = 64  # the kernel's key tile; the plain version's block
 MAX_HEAD_DIM = 256
 MAX_QUERY_ROWS = 65535  # the kernel's grid.y
 NEG_INF = -1e30  # the reference's mask sentinel (not -inf)
-_DTYPES = (torch.float32, torch.bfloat16)
+# The C entry point's codes beyond the CUDA runtime's errors.
+_NO_ENCODE_ENTRY, _ENCODE_FAILED = 1999, 2000
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # C codes
 
 
 def check_inputs(
@@ -67,7 +76,7 @@ def check_inputs(
         raise ValueError(f"{bhq} query rows are not a multiple of {bhkv} KV rows")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
-            f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want one of {_DTYPES}"
+            f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want one of {list(_DTYPES)}"
         )
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("q, k and v lie on different devices")
@@ -83,12 +92,15 @@ def flash_attention_bhsd_plain(
     *,
     causal: bool = True,
     window: int | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """The blocked online softmax in plain torch, on any device, in the
-    kernel's KV blocks."""
+    kernel's KV blocks.  ``scale`` (default ``1/sqrt(D)``) is the kernel's
+    own argument; given, it holds head-dim-padded inputs to the unpadded
+    result."""
     bhq, bhkv, sq, skv, d = check_inputs(q, k, v, window)
     group = bhq // bhkv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     dev = q.device
     # (BHkv, group * Sq, D): the query rows of one KV row, adjacent.
     q32 = q.float().reshape(bhkv, group * sq, d)
@@ -117,6 +129,20 @@ def flash_attention_bhsd_plain(
     return out.reshape(bhq, sq, d).to(q.dtype)
 
 
+def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim the kernel is given: a 16-bit D rounded up to a
+    multiple of 16 (the tensor-core path's k16 step), float32 as it is."""
+    return d if dtype == torch.float32 else -(-d // 16) * 16
+
+
+def pad_head_dim(x: torch.Tensor, dg: int) -> torch.Tensor:
+    """x (BH, S, D) zero-padded to (BH, S, dg); x itself if D == dg.  Zero
+    columns add nothing to q.k and give zero output columns."""
+    d = x.shape[-1]
+    return x if d == dg else torch.nn.functional.pad(x, (0, dg - d))
+
+
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
@@ -144,7 +170,9 @@ def flash_attention_bhsd_cuda(
 
     Takes CUDA tensors only (raises ``ValueError`` otherwise), head dims
     up to ``MAX_HEAD_DIM`` and up to ``MAX_QUERY_ROWS`` query rows; raises
-    ``RuntimeError`` if the launch fails.
+    ``RuntimeError`` if the launch, or for 16-bit inputs the encoding of a
+    tensor map, fails.  ``Skv == 0`` gives zeros (no key: acc = 0, l = 0)
+    without a launch.
     """
     bhq, bhkv, sq, skv, d = check_inputs(q, k, v, window)
     dev = q.device
@@ -156,24 +184,39 @@ def flash_attention_bhsd_cuda(
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
     if bhq > MAX_QUERY_ROWS:
         raise ValueError(f"{bhq} query rows > {MAX_QUERY_ROWS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if max(sq, skv) >= 2**31:
+        raise ValueError(f"sequence lengths {sq}, {skv} do not fit 32 bits")
+    if not (bhq and sq and skv):
+        return torch.zeros_like(q)
+    dg = kernel_head_dim(d, q.dtype)
+    # Contiguous, and 16-byte aligned for the tensor maps' rows.
+    q, k, v = (
+        x if x.data_ptr() % 16 == 0 else x.clone()
+        for x in (pad_head_dim(t, dg).contiguous() for t in (q, k, v))
+    )
     out = torch.empty_like(q)
-    if bhq and sq:
-        index = torch.cuda.current_device() if dev.index is None else dev.index
-        stream = torch.cuda.current_stream(index).cuda_stream
-        err = _library().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bhq, bhkv, sq, skv, d,
-            int(causal), -1 if window is None else int(window),
-            1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
-            index, stream,
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    err = _library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        bhq, bhkv, sq, skv, dg,
+        int(causal), -1 if window is None else int(window),
+        1.0 / math.sqrt(d), _DTYPES[q.dtype],
+        index, stream,
+    )
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(
+            f"flash_attention: cuTensorMapEncodeTiled failed (CUresult "
+            f"{err - _ENCODE_FAILED})"
         )
-        if err:
-            raise RuntimeError(
-                f"flash_attention kernel launch failed: CUDA error {err}"
-            )
-        flash_attention_bhsd.launches += 1
-    return out
+    if err == _NO_ENCODE_ENTRY:
+        raise RuntimeError(
+            "flash_attention: the driver provides no cuTensorMapEncodeTiled"
+        )
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    flash_attention_bhsd.launches += 1
+    return out if dg == d else out[..., :d].contiguous()
 
 
 def flash_attention_bhsd(

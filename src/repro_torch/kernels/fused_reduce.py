@@ -8,8 +8,11 @@ chunk received from its peer into its partial buffer.
 * ``fused_reduce_flat_cuda`` launches ``csrc/fused_reduce.cu`` (built at
   first use, `repro_torch.kernels._build`), the port of the reference's
   Pallas kernel ``src/repro/kernels/fused_reduce.py`` (``_kernel``).  It
-  takes CUDA tensors only, a and b of one dtype and every dtype bfloat16,
-  float16 or float32; anything else raises.
+  takes CUDA tensors only and every dtype bfloat16, float16 or float32;
+  anything else raises.  The kernel reads a and b in one dtype: where
+  they differ, the wrapper casts both to float32 first
+  (``kernel_operands``), which is exact, and the kernel adds in float32
+  anyway.
 * ``fused_reduce_flat_plain`` is ``(a.float() + b.float()).to(out_dtype)``
   on any device: one float32 add and one rounding, so the kernel equals
   it bitwise.  It is the kernel's yardstick on the card and what runs on
@@ -49,6 +52,17 @@ def fused_reduce_flat_plain(
     return (a.float() + b.float()).to(out_dtype or a.dtype)
 
 
+def kernel_operands(
+    a: torch.Tensor, b: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """a and b as the kernel reads them, in one dtype: as they are where
+    their dtypes agree, else both cast to float32 (exact for every dtype
+    the kernel takes, so the float32 sum and its rounding do not move)."""
+    if a.dtype == b.dtype:
+        return a, b
+    return a.float(), b.float()
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_reduce")
@@ -82,12 +96,12 @@ def fused_reduce_flat_cuda(
             f"fused_reduce_flat_cuda takes CUDA tensors on one device, got a "
             f"on {dev} and b on {b.device}"
         )
-    if a.dtype != b.dtype or a.dtype not in _DTYPES or out_dtype not in _DTYPES:
+    if any(t not in _DTYPES for t in (a.dtype, b.dtype, out_dtype)):
         raise ValueError(
-            f"fused_reduce kernel takes a and b of one dtype and every dtype in "
-            f"{list(_DTYPES)}, got {a.dtype}, {b.dtype} -> {out_dtype}"
+            f"fused_reduce kernel takes every dtype in {list(_DTYPES)}, got "
+            f"{a.dtype}, {b.dtype} -> {out_dtype}"
         )
-    a, b = a.contiguous(), b.contiguous()
+    a, b = (t.contiguous() for t in kernel_operands(a, b))
     out = torch.empty(a.shape, dtype=out_dtype, device=dev)
     n = math.prod(a.shape)
     if n:

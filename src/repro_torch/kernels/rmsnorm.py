@@ -9,8 +9,11 @@ float32, in the reference's order of operations: ``x32 = float(x)``,
 * ``rmsnorm_2d_cuda`` launches ``csrc/rmsnorm.cu`` (built at first use,
   `repro_torch.kernels._build`), the port of the reference's Pallas kernel
   ``src/repro/kernels/rmsnorm.py`` (``_kernel``).  It takes CUDA tensors
-  only: x bfloat16, float16 or float32, w (D,) float32 or bfloat16,
-  ``1 <= D <= MAX_D``; anything else raises.
+  only: x bfloat16, float16 or float32, w (D,) float32, bfloat16 or
+  float16, ``1 <= D <= MAX_D``; anything else raises.  The kernel reads a
+  float32 or bfloat16 w; the wrapper casts a float16 w to float32 first
+  (``kernel_weight``), which is exact, and the kernel computes in float32
+  anyway.
 * ``rmsnorm_2d_plain`` is the same arithmetic in plain torch, on any
   device.  It is the kernel's yardstick on the card and what runs on the
   CPU.
@@ -33,7 +36,7 @@ from repro_torch.kernels import _build
 
 MAX_D = 16384  # the kernel's widest row (4 vectors a thread, 1024 threads)
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_W_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_W_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # what the kernel reads
 
 
 def rmsnorm_2d_plain(
@@ -50,6 +53,12 @@ def rmsnorm_2d_plain(
     w32 = w.float()
     out = normed * (1.0 + w32) if offset else normed * w32
     return out.to(x.dtype)
+
+
+def kernel_weight(w: torch.Tensor) -> torch.Tensor:
+    """w as the kernel reads it: float16 cast to float32 (exact), float32
+    and bfloat16 as they are."""
+    return w.float() if w.dtype == torch.float16 else w
 
 
 @functools.cache
@@ -97,11 +106,12 @@ def rmsnorm_2d_cuda(
         raise ValueError(f"w has {w.shape[0]} entries, x rows {d}")
     if not 1 <= d <= MAX_D:
         raise ValueError(f"row width {d} outside 1..{MAX_D}")
-    if x.dtype not in _X_DTYPES or w.dtype not in _W_DTYPES:
+    if x.dtype not in _X_DTYPES or w.dtype not in (*_W_DTYPES, torch.float16):
         raise ValueError(
             f"rmsnorm kernel takes an x dtype in {list(_X_DTYPES)} and a w dtype in "
-            f"{list(_W_DTYPES)}, got {x.dtype} and {w.dtype}"
+            f"{[*_W_DTYPES, torch.float16]}, got {x.dtype} and {w.dtype}"
         )
+    w = kernel_weight(w)
     x, w = x.contiguous(), w.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()  # the kernel's vector split needs a 16-byte aligned base

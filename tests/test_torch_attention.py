@@ -10,10 +10,12 @@
 
 Inputs are drawn with numpy and handed to both.  Tolerances: atol = rtol
 = 2e-5 in float32 (the two sum in different orders), 1e-2 in bfloat16
-(one bf16 ulp of outputs of magnitude about 1).
+(one bf16 ulp of outputs of magnitude about 1), 1e-3 in float16 (one
+float16 ulp there: both compute in float32 and round once).
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -27,10 +29,13 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_bhsd,
     flash_attention_bhsd_cuda,
+    flash_attention_bhsd_plain,
+    kernel_head_dim,
+    pad_head_dim,
 )
 from repro_torch.models import attention as tattn
 
-TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 1e-3}
 
 # (b, sq, skv, hq, hkv, d, causal, window)
 FLASH_CASES = [
@@ -62,7 +67,7 @@ def _close(got: torch.Tensor, want, tol: float):
     )
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize(
     "b,sq,skv,hq,hkv,d,causal,window", FLASH_CASES, ids=str
 )
@@ -80,6 +85,27 @@ def test_flash_attention_matches_pallas_interpret(
     assert flash_attention_bhsd.launches == before  # CPU: the plain version
     assert got.dtype == tq.dtype and got.shape == tq.shape
     _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize(
+    "d,causal,window", [(36, True, None), (120, True, 40), (20, False, None)], ids=str
+)
+def test_head_dim_padding_with_the_true_scale_keeps_the_plain_result(d, causal, window):
+    """The CUDA wrapper's zero padding of a 16-bit head dim to a multiple
+    of 16, with the scale of the true D, leaves the result as it is."""
+    q, k, v = (torch.from_numpy(a) for a in _draw(6, (6, 90, d), (3, 90, d), (3, 90, d)))
+    dg = kernel_head_dim(d, torch.bfloat16)
+    assert dg % 16 == 0 and 0 < dg - d < 16
+    assert kernel_head_dim(d, torch.float32) == d
+    assert kernel_head_dim(dg, torch.float16) == dg and pad_head_dim(q, d) is q
+    padded = [pad_head_dim(t, dg) for t in (q, k, v)]
+    assert padded[0].shape == (6, 90, dg) and not padded[0][..., d:].any()
+    got = flash_attention_bhsd_plain(
+        *padded, causal=causal, window=window, scale=1.0 / math.sqrt(d)
+    )
+    want = flash_attention_bhsd_plain(q, k, v, causal=causal, window=window)
+    assert not got[..., d:].any()
+    np.testing.assert_allclose(got[..., :d].numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("skip_blocks", [False, True])

@@ -12,9 +12,12 @@ card is present and skips without one.
   cubes and flags included, and the card's plans bitwise equal to the
   CPU's.
 * ``flash_attention_bhsd``: within 2e-5 of the plain version in float32
-  and within one bf16 ulp of the output magnitude in bfloat16, on the
-  shapes ``chip_smoke.py``'s ``attention_vs_plain`` phase checks; every
-  call on CUDA tensors launches the kernel once.
+  and within one ulp of the output magnitude in bfloat16 and float16, on
+  the shapes ``chip_smoke.py``'s ``attention_vs_plain`` phase checks (a
+  padded head dim of 36 among them); at the serving shape at most 2% of
+  the 16-bit outputs differ bitwise from the plain version's (P.V at
+  float32 accuracy); every call on CUDA tensors launches the kernel once,
+  and a call without keys gives zeros without a launch.
 * ``ssd_scan_bhsp``: y and the final state within 3e-4 of their own scale
   of the plain version (the reference's kernel tolerance; a bf16 y also
   within one bf16 ulp of its magnitude, the cast's rounding), on the
@@ -26,12 +29,13 @@ card is present and skips without one.
   version in bf16 and float16 and within 1e-5 of it in float32 (only the
   order of the sum of squares differs), on the serving shapes of
   qwen2-1.5B, mamba2-130m, zamba2-1.2b and gemma-2b, a decode shape, a
-  bf16 weight, D off the vector width and a misaligned view; the models'
-  ``rms_norm`` launches it and never runs the plain version on a card;
-  unsupported dtypes and widths raise.
+  bf16 and a float16 weight, D off the vector width and a misaligned
+  view; the models' ``rms_norm`` launches it and never runs the plain
+  version on a card; unsupported dtypes and widths raise.
 * ``fused_reduce_flat``: bitwise equal to the plain version
   (``torch.equal``) for every dtype pair on aligned, odd and misaligned
-  buffers; a dtype it does not take raises.
+  buffers and for a and b of different dtypes; a dtype it does not take
+  raises.
 """
 
 import math
@@ -161,10 +165,13 @@ def test_card_plans_match_cpu_plans(mode, split):
 
 
 # (name, BHq, BHkv, Sq, Skv, D, dtype, causal, window): the serving path's
-# shape (qwen2-1.5B, 8 requests of 2048 tokens), then head dims 120, 256
-# and 16, a float32 case with Sq != Skv, and a ragged S.
+# shape (qwen2-1.5B, 8 requests of 2048 tokens) in bf16 and float16, then
+# head dims 120, 256, 16 and 36 (both padded to a multiple of 16 by the
+# wrapper), a float32 case with Sq != Skv, and a ragged S.
 ATTENTION_CASES = [
     ("main_path", 96, 16, 2048, 2048, 128, "bfloat16", True, None),
+    ("float16", 96, 16, 2048, 2048, 128, "float16", True, None),
+    ("d36_pad", 32, 8, 700, 700, 36, "bfloat16", True, None),
     ("d120_window", 32, 8, 1024, 1024, 120, "bfloat16", True, 512),
     ("d256_group1", 8, 8, 1024, 1024, 256, "bfloat16", True, None),
     ("d16", 12, 4, 300, 300, 16, "bfloat16", True, None),
@@ -174,10 +181,18 @@ ATTENTION_CASES = [
 
 
 def _attention_tolerance(dtype: str, want: torch.Tensor) -> float:
+    """2e-5 in float32; one ulp of the output's magnitude in bf16 and
+    float16."""
     if dtype == "float32":
         return 2e-5
     magnitude = float(want.float().abs().max())
-    return 2.0 ** (math.floor(math.log2(magnitude)) - 7)  # one bf16 ulp
+    mantissa = 7 if dtype == "bfloat16" else 10
+    return 2.0 ** (math.floor(math.log2(magnitude)) - mantissa)
+
+
+def _differ_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The share of outputs not bitwise equal to the plain version's."""
+    return float((got != want).float().mean())
 
 
 @pytest.mark.cuda
@@ -203,6 +218,21 @@ def test_flash_attention_kernel_matches_plain(
     assert got.dtype == q.dtype and got.shape == q.shape
     err = float((got.float() - want.float()).abs().max())
     assert err <= _attention_tolerance(dtype, want), (name, err)
+    if name in ("main_path", "float16"):
+        # P.V at float32 accuracy: only outputs within float32 noise of a
+        # 16-bit rounding boundary may differ from the plain version's.
+        assert _differ_share(got, want) <= 0.02, (name, _differ_share(got, want))
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_without_keys_gives_zeros():
+    _require_card()
+    q = torch.randn((4, 10, 64), device="cuda").bfloat16()
+    k = torch.zeros((2, 0, 64), device="cuda").bfloat16()
+    before = flash_attention_bhsd.launches
+    got = flash_attention_bhsd(q, k, k, causal=False)
+    assert flash_attention_bhsd.launches == before
+    assert got.shape == q.shape and not got.any()
 
 
 @pytest.mark.cuda
@@ -340,6 +370,7 @@ RMSNORM_CASES = [
     ("d1234", 300, 1234, "bfloat16", "float32", True),
     ("t7", 7, 2048, "float32", "float32", True),
     ("d16384", 64, 16384, "float32", "bfloat16", False),
+    ("f16_weight", 4096, 2048, "bfloat16", "float16", True),
 ]
 
 
@@ -412,7 +443,7 @@ def test_rmsnorm_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="dtype"):
         rn.rmsnorm_2d(x.double(), w)
     with pytest.raises(ValueError, match="dtype"):
-        rn.rmsnorm_2d(x, w.half())
+        rn.rmsnorm_2d(x, w.double())
     with pytest.raises(ValueError, match="entries"):
         rn.rmsnorm_2d(x, w[:63])
     with pytest.raises(ValueError, match="row width"):
@@ -430,6 +461,13 @@ REDUCE_CASES = [
     ((3, 5, 7), "float32", "bfloat16"),
     ((17,), "bfloat16", "float16"),
     ((100000,), "float16", "float32"),
+]
+# (shape, a dtype, b dtype, out dtype): mixed dtypes, which the wrapper
+# casts to float32 before the launch.
+MIXED_REDUCE_CASES = [
+    ((8388608,), "bfloat16", "float32", "float32"),
+    ((1000, 999), "float32", "bfloat16", "bfloat16"),
+    ((100001,), "float16", "bfloat16", "float16"),
 ]
 
 
@@ -456,11 +494,29 @@ def test_fused_reduce_kernel_matches_plain_bitwise(shape, in_dtype, out_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,a_dtype,b_dtype,out_dtype", MIXED_REDUCE_CASES)
+def test_fused_reduce_kernel_mixed_dtypes_match_plain_bitwise(shape, a_dtype, b_dtype, out_dtype):
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    a, b = (
+        (50 * torch.randn(shape, generator=gen, device="cuda")).to(getattr(torch, dt))
+        for dt in (a_dtype, b_dtype)
+    )
+    out_dtype = getattr(torch, out_dtype)
+    before = fr.fused_reduce_flat.launches
+    got = fr.fused_reduce_flat(a, b, out_dtype=out_dtype)
+    assert fr.fused_reduce_flat.launches == before + 1
+    want = fr.fused_reduce_flat_plain(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_fused_reduce_kernel_refuses_what_it_does_not_take():
     _require_card()
     a = torch.zeros(8, device="cuda")
     with pytest.raises(ValueError, match="dtype"):
-        fr.fused_reduce_flat(a, a.bfloat16())
+        fr.fused_reduce_flat(a, a.double())
     with pytest.raises(ValueError, match="dtype"):
         fr.fused_reduce_flat(a.double(), a.double())
     with pytest.raises(ValueError, match="shape mismatch"):

@@ -104,6 +104,27 @@ def test_rmsnorm_plain_matches_reference(t, d, w_dtype, x_dtype, offset):
         )
 
 
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("offset", [False, True], ids=["w", "offset"])
+def test_rmsnorm_float16_weight_through_the_kernel_cast(x_dtype, offset):
+    """A float16 weight: the CUDA wrapper's cast (``kernel_weight``, to
+    float32) gives bitwise what the plain version gives, and both are
+    within the norm's tolerance of the reference's Pallas kernel."""
+    x, w = _draw(10, (300, 160), (160,))
+    tx, tw = _torch(3.0 * x, x_dtype), _torch(w, "float16")
+    kw = rn.kernel_weight(tw)
+    assert kw.dtype == torch.float32 and torch.equal(kw.half(), tw)
+    got = rn.rmsnorm_2d_plain(tx, kw, offset=offset)
+    assert torch.equal(got, rn.rmsnorm_2d_plain(tx, tw, offset=offset))
+    want = _f32(pallas_rmsnorm_2d(_jax(3.0 * x, x_dtype), _jax(w, "float16"),
+                                  offset=offset, interpret=True))
+    tol_dtype = "float32" if x_dtype == "float32" else "bfloat16"
+    np.testing.assert_allclose(_f32(got), want, rtol=0, atol=_norm_tol(tol_dtype, want))
+    for w_dtype in ("float32", "bfloat16"):
+        same = _torch(w, w_dtype)
+        assert rn.kernel_weight(same) is same
+
+
 def test_rmsnorm_dispatch_on_the_cpu_is_the_plain_version():
     x, w = _draw(1, (4, 5, 96), (96,))
     tx, tw = _torch(x, "bfloat16"), _torch(w, "float32")
@@ -152,6 +173,44 @@ def test_fused_reduce_plain_matches_reference_bitwise(shape, in_dtype, out_dtype
     )
     assert got.dtype == getattr(torch, out_dtype) and tuple(got.shape) == want.shape
     assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize(
+    "a_dtype,b_dtype,out_dtype",
+    [("bfloat16", "float32", None), ("float32", "bfloat16", "bfloat16"),
+     ("float16", "bfloat16", "float32"), ("bfloat16", "float16", None)],
+    ids=str,
+)
+def test_fused_reduce_mixed_dtypes_through_the_kernel_cast(a_dtype, b_dtype, out_dtype):
+    """Mixed dtypes, as the reference takes them: the CUDA wrapper's cast
+    (``kernel_operands``, both to float32) gives bitwise what the plain
+    version and the reference's Pallas kernel give."""
+    a, b = _draw(9, (3, 1001), (3, 1001))
+    ta, tb = _torch(50.0 * a, a_dtype), _torch(50.0 * b, b_dtype)
+    out = getattr(torch, out_dtype) if out_dtype else None
+    ka, kb = fr.kernel_operands(ta, tb)
+    assert ka.dtype == kb.dtype == torch.float32
+    got = fr.fused_reduce_flat_plain(ka, kb, out_dtype=out or ta.dtype)
+    plain = fr.fused_reduce_flat_plain(ta, tb, out_dtype=out)
+    want = pallas_fused_reduce(
+        _jax(50.0 * a, a_dtype), _jax(50.0 * b, b_dtype),
+        out_dtype=getattr(jnp, out_dtype) if out_dtype else None, interpret=True,
+    )
+    assert got.dtype == plain.dtype == getattr(torch, out_dtype or a_dtype)
+    assert torch.equal(got, plain)
+    assert np.array_equal(_bits(plain), _bits(want))
+    same = fr.kernel_operands(ta, ta)
+    assert same[0] is ta and same[1] is ta  # one dtype: no copy
+
+
+def test_reduce_bound_counts_each_operand_in_its_own_dtype():
+    from repro_torch.benchmarks import roofline
+
+    a, b = torch.zeros(1000, dtype=torch.bfloat16), torch.zeros(1000)
+    ms, by = roofline.reduce_bound(a, torch.float32, b)
+    assert by == "bytes"
+    assert ms == pytest.approx((2000 + 4000 + 4000) / roofline.HBM_BYTES_PER_S * 1e3)
+    assert roofline.reduce_bound(a, torch.bfloat16) == roofline.reduce_bound(a, torch.bfloat16, a)
 
 
 def test_fused_reduce_rejects_a_shape_mismatch():
@@ -220,11 +279,29 @@ def test_ops_ssd_scan_matches_reference():
     dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0).astype(np.float32)
     a_log = (0.5 * rng.standard_normal(h)).astype(np.float32)
     bb, cc = (rng.standard_normal((b, s, n)).astype(np.float32) for _ in range(2))
-    y, state = ops.ssd_scan(*(torch.from_numpy(a) for a in (x, dt, a_log, bb, cc)), chunk=32)
+    y = ops.ssd_scan(*(torch.from_numpy(a) for a in (x, dt, a_log, bb, cc)), chunk=32)
     want = _f32(jops.ssd_scan(*(jnp.asarray(a) for a in (x, dt, a_log, bb, cc)),
                               chunk=32, interpret=True))
-    assert y.shape == x.shape and state.shape == (b, h, p, n)
+    assert isinstance(y, torch.Tensor) and y.shape == x.shape and y.dtype == torch.float32
     np.testing.assert_allclose(_f32(y), want, rtol=0, atol=3e-4 * max(1.0, np.abs(want).max()))
+
+
+def test_ops_ssd_scan_returns_y_alone_in_x_dtype():
+    rng = np.random.default_rng(7)
+    b, s, h, p, n = 2, 70, 2, 16, 8
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0).astype(np.float32)
+    a_log = (0.5 * rng.standard_normal(h)).astype(np.float32)
+    bb, cc = (rng.standard_normal((b, s, n)).astype(np.float32) for _ in range(2))
+    rest = [torch.from_numpy(a) for a in (dt, a_log, bb, cc)]
+    y = ops.ssd_scan(_torch(x, "bfloat16"), *rest, chunk=32)
+    want = _f32(jops.ssd_scan(_jax(x, "bfloat16"), *(jnp.asarray(a) for a in (dt, a_log, bb, cc)),
+                              chunk=32, interpret=True))
+    assert isinstance(y, torch.Tensor) and y.dtype == torch.bfloat16 and y.shape == x.shape
+    # The reference's scan tolerance plus the bf16 cast's rounding.
+    scale = float(np.abs(want).max())
+    atol = 3e-4 * scale + 2.0 ** (math.floor(math.log2(scale)) - 7)
+    np.testing.assert_allclose(_f32(y), want, rtol=0, atol=atol)
 
 
 def test_ops_reexports_the_kernel_wrappers():
@@ -232,9 +309,14 @@ def test_ops_reexports_the_kernel_wrappers():
     from repro_torch.kernels import ssd_scan as ssd
 
     assert ops.flash_attention is fa.flash_attention
-    assert ops.ssd_scan is ssd.ssd_scan
     assert ops.rmsnorm is rn.rmsnorm
     assert ops.fused_reduce is fr.fused_reduce_flat
+    # ops.ssd_scan is the y-only wrapper of the models' scan, which also
+    # returns the final state.
+    x, dt, bb, cc = _draw(8, (1, 40, 2, 8), (1, 40, 2), (1, 40, 4), (1, 40, 4))
+    args = [torch.from_numpy(a) for a in (x, np.logaddexp(dt, 0.0), np.zeros(2, np.float32), bb, cc)]
+    y, _ = ssd.ssd_scan(*args, chunk=16)
+    assert torch.equal(ops.ssd_scan(*args, chunk=16), y)
 
 
 # ---------------------------------------------------------------------------
